@@ -1,0 +1,191 @@
+"""The directional sweep: the CUDA kernel ``sweep_scan`` and its plain version.
+
+Counterpart of the JAX package's ``ops/sweep_pallas.py``.  One fast-sweeping
+relax of a batch of BFS distance fields along one axis, in one direction,
+not crossing obstacles (the recurrence is written out in
+``csrc/sweep_scan.cu``).  ``ops.distance.distance_fields`` runs four of these
+per round until the fixpoint.
+
+- :func:`sweep_scan` launches the hand-written kernel in
+  ``csrc/sweep_scan.cu``.  It is built with ``nvcc`` for ``sm_90a`` into a
+  shared library with a plain C interface at first use (``build/torch_kernels/``
+  under the checkout, keyed by the source's hash) and loaded with ``ctypes``.
+  ``launches`` counts its launches.
+- :func:`sweep_plain` is the port of the JAX package's portable path,
+  ``_seg_min_scan`` + ``_sweep_xla`` (a Hillis-Steele doubling scan in the
+  ``INF + axis_len`` sentinel form).  It is the CPU path and the yardstick the
+  kernel is held against on the card.
+
+``ops.distance._sweep`` picks between them by the device of the tensor: a
+CUDA tensor goes to the kernel, a CPU tensor to the plain version, and
+nothing falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+INF = 1 << 30
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "sweep_scan.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_ARCH = "arch=compute_90a,code=sm_90a"
+
+# Launches of the CUDA kernel since the last reset (callers reset it to 0).
+launches = 0
+_lib = None
+
+
+def _seg_min_scan(values: torch.Tensor, resets: torch.Tensor, axis: int,
+                  reverse: bool) -> torch.Tensor:
+    """Segmented running minimum along ``axis``: where ``resets`` is True the
+    minimum restarts from that position's value.  Hillis-Steele doubling
+    (log2(n) rounds of roll + min/where), as in the JAX package.  ``resets``
+    may broadcast against ``values`` on every axis but ``axis``."""
+    n = values.shape[axis]
+    if reverse:
+        values = values.flip(axis)
+        resets = resets.flip(axis)
+    v, r = values, resets
+    idx_shape = [1] * values.ndim
+    idx_shape[axis] = n
+    idx = torch.arange(n, device=values.device).reshape(idx_shape)
+    off = 1
+    while off < n:
+        # (value, reset) from `off` positions earlier along axis; positions
+        # without a predecessor combine with the identity (+inf, no reset).
+        valid = idx >= off
+        sv = torch.where(valid, torch.roll(v, off, axis), INF + n)
+        sr = valid & torch.roll(r, off, axis)
+        v = torch.where(r, v, torch.minimum(v, sv))
+        r = r | sr
+        off *= 2
+    if reverse:
+        v = v.flip(axis)
+    return v
+
+
+def _sweep_xla(d: torch.Tensor, free: torch.Tensor, axis: int, reverse: bool,
+               coord: torch.Tensor) -> torch.Tensor:
+    """Port of the JAX package's ``distance._sweep_xla``.  ``free`` (bool)
+    and ``coord`` (int32 position along ``axis``, negated for reverse
+    sweeps) broadcast against ``d``."""
+    blocked = ~free
+    # Blocked sentinel must stay >= INF after the coordinate shift below for
+    # any position in the axis, else it would leak as a fake INF-eps distance.
+    axis_len = d.shape[axis]
+    v = torch.where(blocked, INF + axis_len, d - coord)
+    m = _seg_min_scan(v, blocked, axis=axis, reverse=reverse)
+    relaxed = torch.where(blocked, INF, torch.minimum(d, m + coord))
+    # guard overflow: anything >= INF stays INF
+    return relaxed.clamp_max(INF)
+
+
+def sweep_plain(d: torch.Tensor, blocked: torch.Tensor, axis: int,
+                reverse: bool) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sweep_scan`: same arguments, same
+    result, on any device."""
+    n = d.shape[axis]
+    shape = [1, 1, 1]
+    shape[axis] = n
+    coord = torch.arange(n, dtype=torch.int32, device=d.device).reshape(shape)
+    if reverse:
+        coord = -coord
+    return _sweep_xla(d, (blocked == 0)[None], axis, reverse, coord)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("sweep_scan: nvcc not found (CUDA_HOME or PATH)")
+    return found
+
+
+def build() -> dict:
+    """Compile ``csrc/sweep_scan.cu`` unless the library for this exact
+    source is already built.  Returns ``{"path", "cached", "seconds",
+    "ptxas"}``; ``ptxas`` is the compiler's register/shared-memory report."""
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    lib = _BUILD_DIR / f"libsweep_scan-{digest}.so"
+    if lib.exists():
+        return {"path": str(lib), "cached": True, "seconds": 0.0, "ptxas": ""}
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"sweep_scan: nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, lib)
+    return {"path": str(lib), "cached": False, "seconds": seconds,
+            "ptxas": proc.stderr.strip()}
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build()["path"])
+        fn = lib.sweep_scan
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def sweep_scan(d: torch.Tensor, blocked: torch.Tensor, axis: int,
+               reverse: bool) -> torch.Tensor:
+    """One directional sweep on the card by the CUDA kernel.
+
+    Args:
+      d: (R, H, W) int32, contiguous, on a CUDA device; values in [0, INF].
+      blocked: (H, W) uint8, contiguous, same device; nonzero = obstacle.
+      axis: 1 (along H) or 2 (along W).
+      reverse: walk the axis from its end.
+
+    Returns a new (R, H, W) int32 tensor.  Raises on anything else, CPU
+    tensors included.
+    """
+    global launches
+    if not (d.is_cuda and blocked.device == d.device):
+        raise ValueError("sweep_scan: d and blocked must be on one CUDA "
+                         f"device, got {d.device} and {blocked.device}")
+    if d.dtype != torch.int32 or blocked.dtype != torch.uint8:
+        raise TypeError("sweep_scan: need int32 d and uint8 blocked, got "
+                        f"{d.dtype} and {blocked.dtype}")
+    if d.ndim != 3 or blocked.shape != d.shape[1:] or min(d.shape) < 1:
+        raise ValueError(f"sweep_scan: bad shapes d={tuple(d.shape)} "
+                         f"blocked={tuple(blocked.shape)}")
+    if not (d.is_contiguous() and blocked.is_contiguous()):
+        raise ValueError("sweep_scan: d and blocked must be contiguous")
+    if axis not in (1, 2):
+        raise ValueError(f"sweep_scan: axis must be 1 or 2, got {axis}")
+    lib = _load()
+    out = torch.empty_like(d)
+    r, h, w = d.shape
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        rc = lib.sweep_scan(d.data_ptr(), blocked.data_ptr(), out.data_ptr(),
+                            r, h, w, axis, int(reverse), stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_scan: launch failed with CUDA error {rc}")
+    launches += 1
+    return out
+
