@@ -11,17 +11,22 @@ activities).  Reports, for that window:
 - device busy ms/step (the sum of CUDA kernel and memory-op self times; one
   stream, so they do not overlap) and the device's idle share of the
   unprofiled wall;
-- the top operators and kernels by device time, the ``sweep_scan`` kernel's
-  share of device time, and host syncs and sweep launches per step;
-- per part of ``mapd_step`` (transitions, assign, replan, step_parallel,
-  record; profiler ranges wrapped round them for the profiled window):
-  host ms, kernel ms and the span on the device timeline per step, all as
-  seen under the profiler.
+- the top operators and kernels by device time, the share of device time
+  of the port's own kernels (``sweep_scan`` and ``field_fused``), and host
+  syncs and kernel launches per step;
+- per part of ``mapd_step`` (commit_pending, transitions, assign, replan,
+  broadcast_view, step_parallel or step_stale, record; profiler ranges
+  wrapped round them for the profiled window): host ms, kernel ms and the
+  span on the device timeline per step, all as seen under the profiler.
 
 Run from the root of a checkout on a machine with the card:
 
     python3 analysis/torch_step_profile.py [--scenario flagship] [--steps 10]
         [--out profile.json]
+
+``MAPD_FUSED`` in the environment selects the field path as it does for the
+solve (``1``: the multi instance of the fused kernel on 256^2 grids,
+``single``: the single instance).
 
 Prints one JSON line (and writes it, indented, to ``--out`` if given).
 """
@@ -48,14 +53,26 @@ from torch.profiler import (  # noqa: E402
 
 from p2p_distributed_tswap_tpu_torch import hostsync  # noqa: E402
 from p2p_distributed_tswap_tpu_torch.models import scenarios  # noqa: E402
-from p2p_distributed_tswap_tpu_torch.ops import sweep_kernel  # noqa: E402
+from p2p_distributed_tswap_tpu_torch.ops import (  # noqa: E402
+    cuda_build,
+    field_fused,
+    sweep_kernel,
+)
 from p2p_distributed_tswap_tpu_torch.solver import mapd  # noqa: E402
 
 SCENARIOS = {"ref": scenarios.REFERENCE_DEMO, "medium": scenarios.MEDIUM,
              "flagship": scenarios.FLAGSHIP,
-             "congested": scenarios.CONGESTED}
+             "congested": scenarios.CONGESTED,
+             "congested-stale": scenarios.CONGESTED_DECENT_STALE}
 # the parts of mapd_step, which looks each up in its module at call time
-PHASES = ("_transitions", "_assign", "_replan", "step_parallel", "_record")
+PHASES = ("_commit_pending", "_transitions", "_assign", "_replan",
+          "_broadcast_view", "step_parallel", "step_stale", "_record")
+# device kernels of the port, by a part of their names
+PORT_KERNELS = {"sweep_scan": "sweep_along", "field_fused": "field_fused"}
+
+
+def _launches() -> int:
+    return sweep_kernel.launches + sum(field_fused.launches.values())
 
 
 def _label_phases() -> None:
@@ -96,7 +113,7 @@ def main() -> int:
     grid, starts, tasks, cfg = scn.build(seed=0)
     cfg = dataclasses.replace(cfg, record_paths=False)
     free = torch.from_numpy(grid.free).to(dev)
-    sweep_kernel.build()
+    cuda_build.build()
 
     def window(profiler=None):
         """Prepare from scratch, warm up, then time ``--steps`` steps: the
@@ -105,7 +122,7 @@ def main() -> int:
         for _ in range(args.warmup):
             s = mapd.mapd_step(cfg, s, tasks_t, free)
         torch.cuda.synchronize()
-        launches0, syncs0 = sweep_kernel.launches, hostsync.count
+        launches0, syncs0 = _launches(), hostsync.count
         if profiler is not None:
             profiler.start()
         t0 = time.perf_counter()
@@ -115,7 +132,7 @@ def main() -> int:
         wall_s = time.perf_counter() - t0
         if profiler is not None:
             profiler.stop()
-        return (int(s.t), wall_s, sweep_kernel.launches - launches0,
+        return (int(s.t), wall_s, _launches() - launches0,
                 hostsync.count - syncs0)
 
     t_end, wall_s, launches, syncs = window()
@@ -149,20 +166,23 @@ def main() -> int:
     # operator rows repeat the time of the kernels they launched
     kernels = [r for r in rows if r["on_device"]]
     busy_ms = sum(r["device_ms"] for r in kernels)
-    sweep_ms = sum(r["device_ms"] for r in kernels
-                   if "sweep_along" in r["name"])
     wall_ms = 1e3 * wall_s
+    port = {}
+    for name, part in PORT_KERNELS.items():
+        ms = sum(r["device_ms"] for r in kernels if part in r["name"])
+        port[name] = {"ms_per_step": ms / args.steps,
+                      "share_of_device": ms / busy_ms if busy_ms else None,
+                      "share_of_wall": ms / wall_ms}
     out = {
-        "scenario": scn.name, "card": card, "steps": args.steps,
-        "t_end": t_end,
+        "scenario": scn.name, "mode": scn.mode,
+        "fused_mode": field_fused.fused_mode(), "card": card,
+        "steps": args.steps, "t_end": t_end,
         "wall_ms_per_step": wall_ms / args.steps,
         "profiled_wall_ms_per_step": 1e3 * prof_wall_s / args.steps,
         "device_busy_ms_per_step": busy_ms / args.steps,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "sweep_kernel_ms_per_step": sweep_ms / args.steps,
-        "sweep_share_of_device": sweep_ms / busy_ms if busy_ms else None,
-        "sweep_share_of_wall": sweep_ms / wall_ms,
-        "sweep_launches_per_step": launches / args.steps,
+        "port_kernels": port,
+        "port_kernel_launches_per_step": launches / args.steps,
         "host_syncs_per_step": syncs / args.steps,
         "phases_profiled": phases,
         "top_kernels": kernels[:15],

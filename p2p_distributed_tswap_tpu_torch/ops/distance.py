@@ -52,30 +52,32 @@ def _sweep(d: torch.Tensor, blocked: torch.Tensor, axis: int,
     return sweep_kernel.sweep_plain(d, blocked, axis, reverse)
 
 
-def _fixpoint(d: torch.Tensor, free: torch.Tensor,
-              max_rounds: int) -> torch.Tensor:
+def _fixpoint(d: torch.Tensor, free: torch.Tensor, max_rounds: int,
+              sweep=_sweep) -> torch.Tensor:
     """Sweep rounds over the (R, H, W) batch ``d`` until nothing changes (or
-    ``max_rounds``)."""
+    ``max_rounds``), each directional sweep by ``sweep``."""
     blocked = (~free).to(torch.uint8).contiguous()
     changed, i = True, 0
     while changed and i < max_rounds:
-        nd = _sweep(d, blocked, axis=2, reverse=False)
-        nd = _sweep(nd, blocked, axis=2, reverse=True)
-        nd = _sweep(nd, blocked, axis=1, reverse=False)
-        nd = _sweep(nd, blocked, axis=1, reverse=True)
+        nd = sweep(d, blocked, axis=2, reverse=False)
+        nd = sweep(nd, blocked, axis=2, reverse=True)
+        nd = sweep(nd, blocked, axis=1, reverse=False)
+        nd = sweep(nd, blocked, axis=1, reverse=True)
         changed = hostsync.flag(torch.any(nd != d))
         d, i = nd, i + 1
     return d
 
 
 def distance_fields(free: torch.Tensor, goals_idx: torch.Tensor,
-                    max_rounds: int = 128) -> torch.Tensor:
+                    max_rounds: int = 128, sweep=_sweep) -> torch.Tensor:
     """Exact BFS distances from every cell to each goal.
 
     Args:
       free: (H, W) bool, True where traversable.
       goals_idx: (G,) int32 flat cell indices of goals.
       max_rounds: safety cap on sweep rounds.
+      sweep: the directional sweep; the default picks the kernel or the
+        plain version by device, ``ops.field_fused`` passes the plain one.
 
     Returns:
       (G, H, W) int32; INF (2^30) at obstacles and unreachable cells. A goal
@@ -87,7 +89,8 @@ def distance_fields(free: torch.Tensor, goals_idx: torch.Tensor,
                         device=free.device).reshape(1, h, w)
     zero = torch.zeros((), dtype=torch.int32, device=free.device)
     seed = (cell == goals_idx.reshape(g, 1, 1)) & free[None]
-    return _fixpoint(torch.where(seed, zero, INF), free, max_rounds)
+    return _fixpoint(torch.where(seed, zero, INF), free, max_rounds,
+                     sweep)
 
 
 def multi_source_field(free: torch.Tensor, sources_idx: torch.Tensor,
@@ -136,9 +139,18 @@ def directions_from_distance(dist: torch.Tensor,
 
 def direction_fields(free: torch.Tensor, goals_idx: torch.Tensor,
                      max_rounds: int = 128) -> torch.Tensor:
-    """(G, H, W) uint8 next-hop directions toward each goal.  (The JAX
-    package's opt-in fused field kernels, ``MAPD_FUSED``, are not ported
-    yet; this is its default path.)"""
+    """(G, H, W) uint8 next-hop directions toward each goal.
+
+    Default path: the sweep fixpoint above, then the direction fold.  With
+    ``MAPD_FUSED=1`` (or ``multi``, or ``single``) a CUDA grid of a shape
+    the JAX package's gates admit runs the fused field kernel instead, one
+    launch from seed to codes (``ops.field_fused``).  Every consumer -- the
+    prime burst and the in-step replan -- comes through here."""
+    from p2p_distributed_tswap_tpu_torch.ops import field_fused
+
+    h, w = free.shape
+    if field_fused.fused_eligible(h, w, free.device):
+        return field_fused.fused_direction_fields(free, goals_idx, max_rounds)
     return directions_from_distance(
         distance_fields(free, goals_idx, max_rounds), free)
 

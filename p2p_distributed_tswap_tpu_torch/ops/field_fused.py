@@ -1,0 +1,192 @@
+"""The fused direction-field engine: goal seed -> BFS fixpoint -> next-hop
+codes in one kernel launch.
+
+Counterpart of the JAX package's ``ops/field_fused.py``.  Opt-in through
+``MAPD_FUSED``, read at call time: ``1`` or ``multi`` runs eight fields per
+CUDA block, ``single`` one field per block, anything else leaves
+``ops.distance.direction_fields`` on its default path (sweeps by
+``sweep_scan`` with one host sync per round).  Which shapes may take which
+instance follows the JAX package's gates exactly, so every scenario takes the
+same path in both packages; the JAX package's TPU backend test becomes "the
+tensors are on a CUDA device", so on the CPU the fused path is never taken.
+
+- :func:`single_direction_fields` and :func:`multi_direction_fields` launch
+  the two instances of the hand-written kernel in ``csrc/field_fused.cu``
+  (built with the port's other kernels by ``ops.cuda_build``) for a CUDA
+  tensor, and run the plain version for a CPU tensor.  Nothing falls back.
+  ``launches`` counts the launches of each instance.
+- :func:`fields_plain` is the plain version: the seed, the sweep fixpoint by
+  ``sweep_kernel.sweep_plain`` (never ``sweep_scan``, even on the card, so the
+  kernel is held against arithmetic independent of both kernels) and
+  ``directions_from_distance``.  Whole-batch convergence there and per-block
+  convergence in the kernel give the same codes, ``max_rounds`` binding or
+  not: a round on a converged field changes nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from p2p_distributed_tswap_tpu_torch.ops import (
+    cuda_build,
+    distance,
+    sweep_kernel,
+)
+
+SUB = 8        # fields per block of the multi instance; rows per TPU tile
+LANES = 128
+HALO = SUB
+# The JAX package's VMEM budgets, kept as shape gates (see fused_eligible).
+MAX_SCRATCH_BYTES = 6 << 20
+MULTI_MAX_BYTES = 12 << 20
+# Shared memory the kernel may give the bit mask (H * ceil(W/32) words).
+MAX_MASK_BITS_BYTES = 232448 - 1024
+_FIELDS = {"single": 1, "multi": SUB}
+
+# Launches of each kernel instance since the last reset (callers reset them).
+launches = {"single": 0, "multi": 0}
+
+
+def fused_mode() -> str:
+    """'' (off, the default), 'multi' (MAPD_FUSED=1 or =multi) or 'single'
+    (MAPD_FUSED=single)."""
+    v = os.environ.get("MAPD_FUSED", "")
+    if v in ("1", "multi"):
+        return "multi"
+    if v == "single":
+        return "single"
+    return ""
+
+
+def multi_eligible(h: int, w: int) -> bool:
+    """The JAX package's shape gate for the multi-field kernel: 8-aligned H,
+    128-aligned W, and its (H+2, 8, W) scratch plus (H, 8, W) codes block
+    within 12 MiB."""
+    return (h % SUB == 0 and w % LANES == 0
+            and ((h + 2) + h) * SUB * w * 4 <= MULTI_MAX_BYTES)
+
+
+def fused_eligible(h: int, w: int, device) -> bool:
+    """Whether ``direction_fields`` on an (h, w) grid on ``device`` takes the
+    fused kernel: a fused mode is set, the device is CUDA, and the shape
+    passes the JAX package's gate for that mode (single: (H+16)*W*4 within
+    6 MiB)."""
+    mode = fused_mode()
+    if not mode or torch.device(device).type != "cuda":
+        return False
+    if mode == "single":
+        return (h % SUB == 0 and w % LANES == 0
+                and (h + 2 * HALO) * w * 4 <= MAX_SCRATCH_BYTES)
+    return multi_eligible(h, w)
+
+
+def fields_plain(free: torch.Tensor, goals_idx: torch.Tensor,
+                 max_rounds: int = 128) -> torch.Tensor:
+    """Plain PyTorch version of both instances: (G, H, W) uint8 codes."""
+    dist = distance.distance_fields(free, goals_idx, max_rounds,
+                                    sweep=sweep_kernel.sweep_plain)
+    return distance.directions_from_distance(dist, free)
+
+
+def _fn():
+    return cuda_build.function(
+        "field_fused",
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p])
+
+
+def fused_kernel(free: torch.Tensor, goals_idx: torch.Tensor,
+                 max_rounds: int, mode: str):
+    """Launch one instance of the CUDA kernel.
+
+    Args:
+      free: (H, W) bool, contiguous, on a CUDA device; True = traversable.
+      goals_idx: (G,) int32 flat goal cells, G >= 1, same device.
+      max_rounds: cap on fast-sweeping rounds, >= 0.
+      mode: 'single' (one field per block) or 'multi' (eight; the goals are
+        padded to a multiple of 8 by repeating the last one).
+
+    Returns ``(codes, rounds)``: (G, H, W) uint8 codes and, per block, the
+    int32 number of rounds it ran.  Raises on anything else, CPU tensors
+    included.
+    """
+    if mode not in _FIELDS:
+        raise ValueError(f"field_fused: mode must be 'single' or 'multi', "
+                         f"got {mode!r}")
+    if not (free.is_cuda and goals_idx.device == free.device):
+        raise ValueError("field_fused: free and goals_idx must be on one CUDA "
+                         f"device, got {free.device} and {goals_idx.device}")
+    if free.dtype != torch.bool or goals_idx.dtype != torch.int32:
+        raise TypeError("field_fused: need bool free and int32 goals_idx, got "
+                        f"{free.dtype} and {goals_idx.dtype}")
+    if (free.ndim != 2 or min(free.shape) < 1 or goals_idx.ndim != 1
+            or goals_idx.shape[0] < 1):
+        raise ValueError(f"field_fused: bad shapes free={tuple(free.shape)} "
+                         f"goals_idx={tuple(goals_idx.shape)}")
+    if not (free.is_contiguous() and goals_idx.is_contiguous()):
+        raise ValueError("field_fused: free and goals_idx must be contiguous")
+    if not (isinstance(max_rounds, int) and max_rounds >= 0):
+        raise ValueError(f"field_fused: bad max_rounds {max_rounds!r}")
+    fields = _FIELDS[mode]
+    h, w = free.shape
+    wp = -(-w // 32)
+    if h * wp * 4 > MAX_MASK_BITS_BYTES or fields * h * w >= 1 << 31:
+        raise ValueError(f"field_fused: a {h}x{w} grid does not fit one block "
+                         "(its bit mask must fit shared memory)")
+    g = goals_idx.shape[0]
+    g_pad = -(-g // fields) * fields
+    goals = goals_idx
+    if g_pad != g:
+        goals = torch.cat([goals, goals[-1:].expand(g_pad - g)])
+    dev = free.device
+    blocked = (~free).to(torch.uint8)
+    bits = torch.empty((h, wp), dtype=torch.int32, device=dev)
+    dist = torch.empty((g_pad, h, w), dtype=torch.int32, device=dev)
+    codes = torch.empty((g, h, w), dtype=torch.uint8, device=dev)
+    rounds = torch.empty(g_pad // fields, dtype=torch.int32, device=dev)
+    fn = _fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(goals.data_ptr(), g_pad, g, blocked.data_ptr(),
+                bits.data_ptr(), dist.data_ptr(), codes.data_ptr(),
+                rounds.data_ptr(), h, w, fields, max_rounds, stream)
+    if rc != 0:
+        raise RuntimeError(f"field_fused: launch failed with CUDA error {rc}")
+    launches[mode] += 1
+    return codes, rounds
+
+
+def _direction_fields(free, goals_idx, max_rounds, mode):
+    if free.is_cuda:
+        return fused_kernel(free, goals_idx, max_rounds, mode)[0]
+    if free.device.type != "cpu":
+        raise ValueError(f"field_fused: unsupported device {free.device}")
+    return fields_plain(free, goals_idx, max_rounds)
+
+
+def single_direction_fields(free: torch.Tensor, goals_idx: torch.Tensor,
+                            max_rounds: int = 128) -> torch.Tensor:
+    """(G, H, W) uint8 next-hop codes, one field per block (the counterpart
+    of the JAX package's ``_kernel``)."""
+    return _direction_fields(free, goals_idx, max_rounds, "single")
+
+
+def multi_direction_fields(free: torch.Tensor, goals_idx: torch.Tensor,
+                           max_rounds: int = 128) -> torch.Tensor:
+    """(G, H, W) uint8 next-hop codes, eight fields per block (the
+    counterpart of the JAX package's ``_multi_kernel``)."""
+    return _direction_fields(free, goals_idx, max_rounds, "multi")
+
+
+def fused_direction_fields(free: torch.Tensor, goals_idx: torch.Tensor,
+                           max_rounds: int = 128) -> torch.Tensor:
+    """Drop-in for ``ops.distance.direction_fields`` on eligible shapes:
+    the multi instance unless ``MAPD_FUSED=single``."""
+    if fused_mode() != "single":
+        return multi_direction_fields(free, goals_idx, max_rounds)
+    return single_direction_fields(free, goals_idx, max_rounds)

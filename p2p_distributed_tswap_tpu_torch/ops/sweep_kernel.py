@@ -7,10 +7,9 @@ not crossing obstacles (the recurrence is written out in
 per round until the fixpoint.
 
 - :func:`sweep_scan` launches the hand-written kernel in
-  ``csrc/sweep_scan.cu``.  It is built with ``nvcc`` for ``sm_90a`` into a
-  shared library with a plain C interface at first use (``build/torch_kernels/``
-  under the checkout, keyed by the source's hash) and loaded with ``ctypes``.
-  ``launches`` counts its launches.
+  ``csrc/sweep_scan.cu``, built at first use with the port's other kernels
+  into one shared library with a plain C interface (``ops.cuda_build``) and
+  loaded with ``ctypes``.  ``launches`` counts its launches.
 - :func:`sweep_plain` is the port of the JAX package's portable path,
   ``_seg_min_scan`` + ``_sweep_xla`` (a Hillis-Steele doubling scan in the
   ``INF + axis_len`` sentinel form).  It is the CPU path and the yardstick the
@@ -24,24 +23,15 @@ nothing falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-INF = 1 << 30
+from p2p_distributed_tswap_tpu_torch.ops import cuda_build
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "sweep_scan.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_ARCH = "arch=compute_90a,code=sm_90a"
+INF = 1 << 30
 
 # Launches of the CUDA kernel since the last reset (callers reset it to 0).
 launches = 0
-_lib = None
 
 
 def _seg_min_scan(values: torch.Tensor, resets: torch.Tensor, axis: int,
@@ -102,52 +92,12 @@ def sweep_plain(d: torch.Tensor, blocked: torch.Tensor, axis: int,
     return _sweep_xla(d, (blocked == 0)[None], axis, reverse, coord)
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("sweep_scan: nvcc not found (CUDA_HOME or PATH)")
-    return found
-
-
-def build() -> dict:
-    """Compile ``csrc/sweep_scan.cu`` unless the library for this exact
-    source is already built.  Returns ``{"path", "cached", "seconds",
-    "ptxas"}``; ``ptxas`` is the compiler's register/shared-memory report."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libsweep_scan-{digest}.so"
-    if lib.exists():
-        return {"path": str(lib), "cached": True, "seconds": 0.0, "ptxas": ""}
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"sweep_scan: nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, lib)
-    return {"path": str(lib), "cached": False, "seconds": seconds,
-            "ptxas": proc.stderr.strip()}
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        fn = lib.sweep_scan
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _fn():
+    return cuda_build.function(
+        "sweep_scan",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p])
 
 
 def sweep_scan(d: torch.Tensor, blocked: torch.Tensor, axis: int,
@@ -177,13 +127,13 @@ def sweep_scan(d: torch.Tensor, blocked: torch.Tensor, axis: int,
         raise ValueError("sweep_scan: d and blocked must be contiguous")
     if axis not in (1, 2):
         raise ValueError(f"sweep_scan: axis must be 1 or 2, got {axis}")
-    lib = _load()
+    fn = _fn()
     out = torch.empty_like(d)
     r, h, w = d.shape
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
-        rc = lib.sweep_scan(d.data_ptr(), blocked.data_ptr(), out.data_ptr(),
-                            r, h, w, axis, int(reverse), stream)
+        rc = fn(d.data_ptr(), blocked.data_ptr(), out.data_ptr(), r, h, w,
+                axis, int(reverse), stream)
     if rc != 0:
         raise RuntimeError(f"sweep_scan: launch failed with CUDA error {rc}")
     launches += 1

@@ -43,7 +43,11 @@ from p2p_distributed_tswap_tpu_torch.ops.distance import (
     pack_directions,
     packed_cells,
 )
-from p2p_distributed_tswap_tpu_torch.solver.step import step_parallel
+from p2p_distributed_tswap_tpu_torch.solver.step import (
+    next_hops,
+    step_parallel,
+    step_stale,
+)
 
 _FAR = 1 << 20  # > any grid manhattan distance
 _I32 = torch.int32
@@ -65,8 +69,8 @@ class MapdState:
     t: torch.Tensor            # () int32 timestep counter
     paths_pos: torch.Tensor    # (Tmax+1, N) int32 recorded positions
     paths_state: torch.Tensor  # (Tmax+1, N) int8 recorded AgentState
-    # --- stale/async decentralized view: carried so states convert both
-    # ways with the JAX package; inert until the stale-mode slice ---
+    # --- stale/async decentralized view (cfg.stale_mode); carried in
+    # every mode so states convert both ways with the JAX package ---
     vpos: torch.Tensor         # (N,) int32 last-broadcast position
     vgoal: torch.Tensor        # (N,) int32 last-broadcast goal
     vstamp: torch.Tensor       # (N,) int32 step of last broadcast
@@ -266,24 +270,71 @@ def _record(cfg: SolverConfig, s: MapdState) -> MapdState:
     return s.replace(t=s.t + 1)
 
 
+def _commit_pending(cfg: SolverConfig, s: MapdState) -> MapdState:
+    """Apply the goal exchanges decided ``swap_commit_delay`` steps ago
+    (:func:`~p2p_distributed_tswap_tpu_torch.solver.step.step_stale`):
+    permute (goal, slot, need_replan) by ``pend_from`` -- exchanged rows stay
+    consistent with exchanged goals -- then land pushed goals, whose rows
+    are stale and flagged for replan.  An identity pend is a no-op."""
+    p = s.pend_from
+    goal, slot, need = s.goal[p], s.slot[p], s.need_replan[p]
+    pushed = s.pend_push >= 0
+    goal = torch.where(pushed, s.pend_push, goal)
+    n, dev = cfg.num_agents, s.pos.device
+    return s.replace(goal=goal, slot=slot, need_replan=need | pushed,
+                     pend_from=torch.arange(n, dtype=_I32, device=dev),
+                     pend_push=torch.full((n,), -1, dtype=_I32, device=dev))
+
+
+def _broadcast_view(cfg: SolverConfig, s: MapdState) -> MapdState:
+    """Refresh the shared view for agents whose broadcast is due this step:
+    every ``view_refresh_steps`` steps on a per-agent phase offset (i mod
+    K), the analog of the reference's per-process 500 ms position timers."""
+    n, k = cfg.num_agents, cfg.view_refresh_steps
+    phase = torch.arange(n, dtype=_I32, device=s.pos.device) % k
+    due = (s.t + phase) % k == 0
+    return s.replace(vpos=torch.where(due, s.pos, s.vpos),
+                     vgoal=torch.where(due, s.goal, s.vgoal),
+                     vstamp=torch.where(due, s.t, s.vstamp))
+
+
 def mapd_step(cfg: SolverConfig, s: MapdState, tasks: torch.Tensor,
               free: torch.Tensor) -> MapdState:
-    """One full MAPD timestep, on the state's device: transitions ->
-    assignment -> replan -> TSWAP step -> record."""
-    if cfg.stale_mode:
-        raise NotImplementedError(
-            "stale decentralized mode (cfg.stale_mode: step_stale, "
-            "_movement_cascade, the view and pending-commit state) is not "
-            "ported yet; it is the next slice of the PyTorch port")
+    """One full MAPD timestep, on the state's device: (pending commit) ->
+    transitions -> assignment -> replan -> TSWAP step -> record.
+
+    Stale mode (``cfg.stale_mode``): last step's pending goal exchanges
+    commit first, the view is refreshed after the replan, and
+    :func:`~p2p_distributed_tswap_tpu_torch.solver.step.step_stale` replaces
+    the fresh-atomic step; with ``swap_commit_delay == 0`` its exchanges
+    commit at the end of the same step instead."""
     dev = s.pos.device
     tasks = _as_tensor(tasks, _I32, dev)
     free = _as_tensor(free, torch.bool, dev)
+    stale = cfg.stale_mode
+    if stale:
+        s = _commit_pending(cfg, s)
     s = _transitions(cfg, s, tasks)
     if hostsync.flag(torch.any((s.phase == _IDLE) & ~torch.all(s.task_used))):
         s = _assign(cfg, s, tasks)
     s = _replan(cfg, s, free)
-    pos, goal, slot = step_parallel(cfg, s.pos, s.goal, s.slot, s.dirs)
-    return _record(cfg, s.replace(pos=pos, goal=goal, slot=slot))
+    if not stale:
+        pos, goal, slot = step_parallel(cfg, s.pos, s.goal, s.slot, s.dirs)
+        return _record(cfg, s.replace(pos=pos, goal=goal, slot=slot))
+    s = _broadcast_view(cfg, s)
+    if cfg.view_ttl_steps is None:
+        visible = torch.ones(cfg.num_agents, dtype=torch.bool, device=dev)
+    else:
+        visible = (s.t - s.vstamp) <= cfg.view_ttl_steps
+    dirs = s.dirs
+    pos, pend_from, pend_push = step_stale(
+        cfg, s.pos, s.goal, s.slot,
+        lambda sl, po: next_hops(cfg, dirs, sl, po),
+        s.vpos, s.vgoal, visible)
+    s = s.replace(pos=pos, pend_from=pend_from, pend_push=pend_push)
+    if cfg.swap_commit_delay == 0:
+        s = _commit_pending(cfg, s)
+    return _record(cfg, s)
 
 
 def _finished(cfg: SolverConfig, s: MapdState) -> torch.Tensor:

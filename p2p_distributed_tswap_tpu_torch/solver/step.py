@@ -1,8 +1,9 @@
 """Batched parallel TSWAP step.
 
-Counterpart of the JAX package's ``solver/step.py`` (fresh-atomic step only;
-the stale-view step is a later slice).  All agents act at once on dense (N,)
-tensors; conflicts resolve with deterministic lowest-agent-id priority.
+Counterpart of the JAX package's ``solver/step.py``: the fresh-atomic step
+(:func:`step_parallel`) and the stale-view decentralized step
+(:func:`step_stale`).  All agents act at once on dense (N,) tensors;
+conflicts resolve with deterministic lowest-agent-id priority.
 Each agent's next hop is one gather from its goal's packed direction field,
 and goal exchanges never recompute fields: they permute the ``slot``
 indirection that maps agents to field rows.
@@ -24,9 +25,10 @@ Scatter idioms, as in the JAX package: every ``.at[].set`` writes through a
 padded scratch slot at index ``n`` (or ``num_cells``), so the only duplicate
 indices land in the discarded slot (or carry one and the same value), which
 keeps ``index_put_`` deterministic on CUDA.  ``.at[].min`` is
-``scatter_reduce_(..., "amin", include_self=True)``.  The movement fixpoint
-decides on the host (``hostsync.flag``) where the JAX package looped on the
-device.
+``scatter_reduce_(..., "amin", include_self=True)``.  The movement fixpoints
+decide on the host (``hostsync.flag``) where the JAX package looped on the
+device; the fixed-length ``lax.scan`` walks are Python loops with no host
+sync.
 """
 
 from __future__ import annotations
@@ -147,40 +149,78 @@ def _swap_phase_round(cfg: SolverConfig, pos, goal, slot, pushed, nh_fn, occ):
     # blocking-graph successor; n = absorbing sentinel.  Freshly-pushed
     # agents absorb: no cycle may pass through them this step.
     f = torch.where(has_move & (b >= 0) & ~pushed, b, n)
-    f_ext = torch.cat([f, f.new_full((1,), n)])
 
     if cfg.visibility_radius is None:
         # global view: everyone is an initiator
+        f_ext = torch.cat([f, f.new_full((1,), n)])
         y = f
         on_cycle = torch.zeros(n, dtype=torch.bool, device=dev)
         for _ in range(cfg.cycle_cap):
             y = f_ext[y]
             on_cycle = on_cycle | (y == idx)
     else:
-        # One walk computes plain cycle membership and the radius-checked
-        # initiator flag; a second ORs the initiator flag around each cycle
-        # so members rotate all-or-nothing.
-        y = f
-        on_cycle_plain = torch.zeros(n, dtype=torch.bool, device=dev)
-        init_ok = torch.zeros(n, dtype=torch.bool, device=dev)
-        within = torch.ones(n, dtype=torch.bool, device=dev)
-        for _ in range(cfg.cycle_cap):
-            y = f_ext[y]
-            within = within & _within_radius(cfg, pos, idx, y.clamp(0, n - 1))
-            hit = y == idx
-            on_cycle_plain = on_cycle_plain | hit
-            init_ok = init_ok | (hit & within)
-        init_ext = torch.cat([init_ok, init_ok.new_zeros(1)])
-        y, any_ok = f, init_ok
-        for _ in range(cfg.cycle_cap):
-            y = f_ext[y]
-            any_ok = any_ok | init_ext[y]
-        on_cycle = on_cycle_plain & any_ok
+        on_cycle = _initiated_cycles(
+            cfg, f, lambda y: _within_radius(cfg, pos, idx, y.clamp(0, n - 1)))
     # each cycle member hands its goal to its successor: perm q[f[x]] = x
     q = _arange(n + 1, dev)
     q[torch.where(on_cycle, f, n)] = torch.where(on_cycle, idx, n)
     q = q[:n]
     return goal[q], slot[q], pushed
+
+
+def _initiated_cycles(cfg: SolverConfig, f, sees):
+    """Agents on a blocking cycle (successor ``f``, ``n`` absorbing) of at
+    most ``cycle_cap`` members that rotates: some member's own walk round
+    the cycle ``sees(y)`` every member ``y`` it passes (that member is the
+    initiator).  One walk computes plain membership and the initiator flag;
+    a second ORs the flag round each cycle, so members rotate
+    all-or-nothing."""
+    n = cfg.num_agents
+    idx = _arange(n, f.device)
+    f_ext = torch.cat([f, f.new_full((1,), n)])
+    y = f
+    on_cycle_plain = torch.zeros(n, dtype=torch.bool, device=f.device)
+    init_ok = torch.zeros(n, dtype=torch.bool, device=f.device)
+    within = torch.ones(n, dtype=torch.bool, device=f.device)
+    for _ in range(cfg.cycle_cap):
+        y = f_ext[y]
+        within = within & sees(y)
+        hit = y == idx
+        on_cycle_plain = on_cycle_plain | hit
+        init_ok = init_ok | (hit & within)
+    init_ext = torch.cat([init_ok, init_ok.new_zeros(1)])
+    y, any_ok = f, init_ok
+    for _ in range(cfg.cycle_cap):
+        y = f_ext[y]
+        any_ok = any_ok | init_ext[y]
+    return on_cycle_plain & any_ok
+
+
+def _cascade(cfg: SolverConfig, u, b, decided, newpos):
+    """Movement fixpoint: each round, every undecided agent whose target
+    ``u`` is open -- no decided agent ends there, and its original occupant
+    ``b`` (-1 none) has decided to move away -- claims it, the lowest id
+    winning.  Rounds repeat until nobody moves (one host sync each)."""
+    n = cfg.num_agents
+    idx = _arange(n, u.device)
+    bc = b.clamp(0, n - 1)
+    changed, r = True, 0
+    while changed and r < cfg.max_move_rounds:
+        # final occupancy of decided agents only (padded scratch cell)
+        occf = torch.full((cfg.num_cells + 1,), -1, dtype=_I32,
+                          device=u.device)
+        occf[torch.where(decided, newpos, cfg.num_cells)] = idx
+        orig_gone = (b < 0) | (decided[bc] & (newpos[bc] != u))
+        open_cell = (occf[u] == -1) & orig_gone
+        claimant = ~decided & open_cell
+        win = _scatter_min(cfg.num_cells + 1, n,
+                           torch.where(claimant, u, cfg.num_cells), idx)
+        mover = claimant & (win[u] == idx)
+        decided = decided | mover
+        newpos = torch.where(mover, u, newpos)
+        changed = hostsync.flag(torch.any(mover))
+        r += 1
+    return newpos
 
 
 def _movement_phase(cfg: SolverConfig, pos, goal, slot, nh_fn, occ):
@@ -194,26 +234,7 @@ def _movement_phase(cfg: SolverConfig, pos, goal, slot, nh_fn, occ):
     mutual = has_move & (b >= 0) & (u[bc] == pos) & (b != idx)
     newpos = torch.where(mutual, u, pos)
     decided = ~has_move | mutual
-
-    changed, r = True, 0
-    while changed and r < cfg.max_move_rounds:
-        # final occupancy of decided agents only (padded scratch cell)
-        occf = torch.full((cfg.num_cells + 1,), -1, dtype=_I32,
-                          device=pos.device)
-        occf[torch.where(decided, newpos, cfg.num_cells)] = idx
-        # target available: nobody finalized there, and its original
-        # occupant (if any) has finalized a move away
-        orig_gone = (b < 0) | (decided[bc] & (newpos[bc] != u))
-        open_cell = (occf[u] == -1) & orig_gone
-        claimant = ~decided & open_cell
-        win = _scatter_min(cfg.num_cells + 1, n,
-                           torch.where(claimant, u, cfg.num_cells), idx)
-        mover = claimant & (win[u] == idx)
-        decided = decided | mover
-        newpos = torch.where(mover, u, newpos)
-        changed = hostsync.flag(torch.any(mover))
-        r += 1
-    return newpos
+    return _cascade(cfg, u, b, decided, newpos)
 
 
 def step_parallel(cfg: SolverConfig, pos: torch.Tensor, goal: torch.Tensor,
@@ -247,3 +268,118 @@ def step_with_next_hops(cfg: SolverConfig, pos, goal, slot, nh_fn):
                                                nh_fn, occ)
     pos = _movement_phase(cfg, pos, goal, slot, nh_fn, occ)
     return pos, goal, slot
+
+
+def _within_radius_pts(cfg: SolverConfig, a, b):
+    """Manhattan-visibility between explicit cell arrays: the stale-mode
+    variant of :func:`_within_radius`, where the observed side comes from
+    the broadcast view, not the true positions."""
+    if cfg.visibility_radius is None:
+        return torch.ones_like(a, dtype=torch.bool)
+    w = cfg.width
+    mh = (a % w - b % w).abs() + (a // w - b // w).abs()
+    return mh <= cfg.visibility_radius
+
+
+def _view_occupancy(cfg: SolverConfig, vpos, visible):
+    """(HW+1,) int32 agent id believed to occupy each cell, -1 if believed
+    empty.  Stale positions can coincide; the lowest id wins."""
+    n = cfg.num_agents
+    occ = _scatter_min(cfg.num_cells + 1, n,
+                       torch.where(visible, vpos, cfg.num_cells),
+                       _arange(n, vpos.device))
+    return torch.where(occ == n, -1, occ)
+
+
+def step_stale(cfg: SolverConfig, pos, goal, slot, nh_fn, vpos, vgoal,
+               visible):
+    """One decentralized TSWAP timestep under stale views: each agent
+    decides from its own fresh state and the last-broadcast ``(vpos,
+    vgoal)`` view of the others, and goal exchanges are returned as a
+    pending permutation (+ push targets) for the caller to commit
+    ``swap_commit_delay`` steps later.  Decisions read the view; movement
+    stays physical (a move is granted only into a cell really free or
+    vacated).  The JAX package's ``step_stale`` docstring sets out the
+    semantics and the divergences from the reference; this port keeps them
+    bit for bit.
+
+    Returns ``(newpos, pend_from, pend_push)``: ``pend_from`` the
+    goal-source permutation (identity where no exchange), ``pend_push`` the
+    pushed-goal cell per agent (-1 none).
+    """
+    n = cfg.num_agents
+    dev = pos.device
+    idx = _arange(n, dev)
+    occ = _occupancy(cfg, pos)                  # physical truth
+    vocc = _view_occupancy(cfg, vpos, visible)
+
+    # own desired next hop: fresh self-knowledge (pos, goal, own field row)
+    u = _hops(cfg, nh_fn, slot, pos, goal)
+    has_move = u != pos
+    bv = torch.where(has_move, vocc[u], -1)
+    bv = torch.where(bv == idx, -1, bv)         # own stale ghost != blocker
+    bvc = bv.clamp(0, n - 1)
+    # an out-of-radius occupant was evicted from the cache: believed free
+    bv = torch.where((bv >= 0) & _within_radius_pts(cfg, pos, vpos[bvc]),
+                     bv, -1)
+    bvc = bv.clamp(0, n - 1)
+    blocked = bv >= 0
+
+    # ---- Rule 3 on the view: blocker parked (in view) on its view goal ----
+    parked_v = vpos == vgoal
+    cand3 = blocked & parked_v[bvc]
+    same_goal = vgoal[bvc] == goal              # push case (shared delivery)
+    # each agent joins at most one pair: grant each blocker its lowest
+    # claimant, then resolve claimant-vs-blocker role conflicts by lowest id
+    grant = _scatter_min(n + 1, n, torch.where(cand3, bvc, n), idx)
+    win = cand3 & (grant[bvc] == idx)
+    tgt = grant[:n]                             # claimant granted agent j
+    keep = win & ((tgt == n) | (idx < tgt))
+    keep = keep & ~(win[bvc] & (bvc < idx))
+    push = keep & same_goal
+    sw = keep & ~same_goal
+
+    pend_from = _arange(n + 1, dev)
+    pend_from[torch.where(sw, idx, n)] = torch.where(sw, bvc, n)
+    pend_from[torch.where(sw, bvc, n)] = torch.where(sw, idx, n)
+    pend_push = torch.full((n + 1,), -1, dtype=_I32, device=dev)
+    pend_push[torch.where(push, bvc, n)] = torch.where(push, pos, -1)
+    pend_push = pend_push[:n]
+
+    # ---- Rule 4 on the view graph: f(j) = the agent j believes occupies
+    # j's desired next cell; pair participants and goal-mutual pairs are
+    # left out of it ----
+    in_pair = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    in_pair[torch.where(keep, idx, n)] = True
+    in_pair[torch.where(keep, bvc, n)] = True
+    in_pair = in_pair[:n]
+    # goal-mutual pairs (each holds the other's cell as goal: what a
+    # committed push leaves) swap physically in the cascade and must not
+    # also read as a Rule-4 2-cycle
+    occ_u = torch.where(has_move, occ[u], -1)
+    ouc = occ_u.clamp(0, n - 1)
+    mutual = (has_move & (occ_u >= 0) & (occ_u != idx)
+              & (goal == u) & (goal[ouc] == pos) & (u[ouc] == pos))
+    fmask = blocked & ~in_pair & ~in_pair[bvc] & ~mutual & ~mutual[bvc]
+    f = torch.where(fmask, bv, n)
+    # the initiator sees each member where the view places it
+    on_cycle = _initiated_cycles(
+        cfg, f, lambda y: _within_radius_pts(
+            cfg, pos, vpos[y.clamp(0, n - 1)]) & (y < n))
+    # members hand goals backward along the ring, pending like swaps
+    pend_from[torch.where(on_cycle, f, n)] = torch.where(on_cycle, idx, n)
+    pend_from = pend_from[:n]
+
+    # ---- movement: only believed-free moves are attempted ----
+    movers = has_move & ~blocked
+    newpos = _movement_cascade(cfg, pos, u, movers, occ, mutual)
+    return newpos, pend_from, pend_push
+
+
+def _movement_cascade(cfg: SolverConfig, pos, u, want, occ, mutual):
+    """Physical movement arbitration for stale mode: :func:`_movement_phase`
+    with an explicit mover mask and no mutual swaps, except the terminal
+    mutual swap of a goal-mutual pair (``mutual``, computed by
+    :func:`step_stale`)."""
+    b = torch.where(want & ~mutual, occ[u], -1)  # true occupant of target
+    return _cascade(cfg, u, b, mutual | ~want, torch.where(mutual, u, pos))

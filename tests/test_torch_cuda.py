@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA sweep kernel against its plain version,
-and CUDA solves against CPU solves.
+"""The port on the card: the CUDA kernels (the sweep and both instances of
+the fused field kernel) against their plain versions, and CUDA solves
+against CPU solves.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -20,7 +21,11 @@ from p2p_distributed_tswap_tpu_torch.core.sampling import (
     start_positions_array,
 )
 from p2p_distributed_tswap_tpu_torch.core.tasks import TaskGenerator
-from p2p_distributed_tswap_tpu_torch.ops import distance, sweep_kernel
+from p2p_distributed_tswap_tpu_torch.ops import (
+    distance,
+    field_fused,
+    sweep_kernel,
+)
 from p2p_distributed_tswap_tpu_torch.solver import mapd
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +111,96 @@ def test_solve_on_cuda_matches_cpu(cuda, radius):
     syncs = hostsync.count
     got = mapd.solve_offline(grid, starts, tasks, cfg)  # default: cuda
     assert hostsync.count > syncs
+    assert got[2] == want[2]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def _fused_inputs(seed, g, h, w, density):
+    rng = np.random.default_rng(seed)
+    free = rng.random((h, w)) > density
+    free[0, 0] = True
+    cells = np.flatnonzero(free.reshape(-1))
+    goals = rng.choice(cells, g).astype(np.int32)
+    goals[0] = 0                                   # a corner
+    if g > 1 and (~free).any():
+        goals[1] = np.flatnonzero(~free.reshape(-1))[0]  # on an obstacle
+    return torch.from_numpy(free), torch.from_numpy(goals)
+
+
+@pytest.mark.parametrize("mode", ["single", "multi"])
+@pytest.mark.parametrize("g,h,w,density,max_rounds", [
+    (3, 100, 100, 0.3, 128), (11, 32, 128, 0.35, 128), (16, 64, 256, 0.2, 128),
+    (1, 8, 128, 0.0, 128), (5, 33, 47, 0.3, 2), (11, 32, 128, 0.35, 1),
+    (9, 256, 256, 0.1, 128), (2, 3, 1, 0.0, 128)])
+def test_fused_kernel_matches_plain(cuda, mode, g, h, w, density, max_rounds):
+    free, goals = _fused_inputs(7 * h + w + g, g, h, w, density)
+    want = field_fused.fields_plain(free, goals, max_rounds)
+    before = dict(field_fused.launches)
+    got, rounds = field_fused.fused_kernel(free.to(cuda), goals.to(cuda),
+                                           max_rounds, mode)
+    torch.cuda.synchronize()
+    assert field_fused.launches[mode] == before[mode] + 1
+    assert got.dtype == torch.uint8 and got.shape == (g, h, w)
+    assert torch.equal(got.cpu(), want)
+    fields = 1 if mode == "single" else 8
+    assert rounds.shape == (-(-g // fields),)
+    assert int(rounds.max()) <= max_rounds
+
+
+def test_fused_wrapper_checks_inputs(cuda):
+    free = torch.ones((8, 128), dtype=torch.bool, device=cuda)
+    goals = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        field_fused.fused_kernel(free.to(torch.uint8), goals, 8, "single")
+    with pytest.raises(TypeError):
+        field_fused.fused_kernel(free, goals.long(), 8, "single")
+    with pytest.raises(ValueError):
+        field_fused.fused_kernel(free, goals.cpu(), 8, "single")
+    with pytest.raises(ValueError):
+        field_fused.fused_kernel(free.T, goals, 8, "single")
+    with pytest.raises(ValueError):
+        field_fused.fused_kernel(free, goals[:0], 8, "multi")
+    with pytest.raises(ValueError):
+        field_fused.fused_kernel(free, goals, 8, "double")
+    big = torch.ones((2048, 1024), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        field_fused.fused_kernel(big, goals, 8, "single")
+
+
+@pytest.mark.parametrize("mode,env", [("multi", "1"), ("multi", "multi"),
+                                      ("single", "single")])
+def test_direction_fields_takes_the_fused_kernel(cuda, monkeypatch, mode,
+                                                 env):
+    grid = Grid.warehouse(64, 256)
+    rng = np.random.default_rng(2)
+    goals = torch.from_numpy(rng.choice(
+        np.flatnonzero(grid.free.reshape(-1)), 6).astype(np.int32))
+    free = torch.from_numpy(grid.free)
+    want = distance.direction_fields(free, goals)
+    monkeypatch.setenv("MAPD_FUSED", env)
+    assert field_fused.fused_eligible(64, 256, cuda)
+    sweeps, fused = sweep_kernel.launches, dict(field_fused.launches)
+    got = distance.direction_fields(free.to(cuda), goals.to(cuda))
+    assert sweep_kernel.launches == sweeps
+    assert field_fused.launches[mode] == fused[mode] + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("fused", ["", "1"])
+def test_stale_solve_on_cuda_matches_cpu(cuda, monkeypatch, fused):
+    grid = Grid.warehouse(32, 128)
+    starts = start_positions_array(grid, 40, seed=4)
+    tasks = TaskGenerator(grid, seed=5).generate_task_arrays(40)
+    cfg = SolverConfig(height=32, width=128, num_agents=40,
+                       visibility_radius=15, view_refresh_steps=2,
+                       swap_commit_delay=1, max_timesteps=400)
+    want = mapd.solve_offline(grid, starts, tasks, cfg, device="cpu")
+    monkeypatch.setenv("MAPD_FUSED", fused)
+    sweeps, fused_n = sweep_kernel.launches, field_fused.launches["multi"]
+    got = mapd.solve_offline(grid, starts, tasks, cfg)
+    assert (field_fused.launches["multi"] > fused_n) == bool(fused)
+    assert (sweep_kernel.launches > sweeps) != bool(fused)
     assert got[2] == want[2]
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])

@@ -3,7 +3,8 @@
 - The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
 - Entry points run on the card unless the caller asks for the CPU: without
   CUDA they raise instead of quietly running on the CPU.
-- The CUDA kernel's wrapper refuses what the kernel does not take.
+- The CUDA kernels' wrappers refuse what the kernels do not take, CPU
+  tensors included.
 """
 
 import pathlib
@@ -15,7 +16,11 @@ import pytest
 import torch
 
 from p2p_distributed_tswap_tpu_torch.core.grid import Grid
-from p2p_distributed_tswap_tpu_torch.ops import distance, sweep_kernel
+from p2p_distributed_tswap_tpu_torch.ops import (
+    distance,
+    field_fused,
+    sweep_kernel,
+)
 from p2p_distributed_tswap_tpu_torch.solver import mapd
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -32,7 +37,22 @@ bad = sorted(k for k in sys.modules
              or k.startswith("p2p_distributed_tswap_tpu.")
              or k.split(".")[0] in ("jax", "jaxlib", "flax"))
 print(len(names), bad)
+print(" ".join(names))
 """
+
+# Every module of the port, the kernels' wrappers and their build included.
+MODULES = {
+    "p2p_distributed_tswap_tpu_torch.convert",
+    "p2p_distributed_tswap_tpu_torch.hostsync",
+    "p2p_distributed_tswap_tpu_torch.models.scenarios",
+    "p2p_distributed_tswap_tpu_torch.ops.cuda_build",
+    "p2p_distributed_tswap_tpu_torch.ops.distance",
+    "p2p_distributed_tswap_tpu_torch.ops.field_fused",
+    "p2p_distributed_tswap_tpu_torch.ops.sweep_kernel",
+    "p2p_distributed_tswap_tpu_torch.solver.invariants",
+    "p2p_distributed_tswap_tpu_torch.solver.mapd",
+    "p2p_distributed_tswap_tpu_torch.solver.step",
+}
 
 
 def _python(code_or_args, **kw):
@@ -45,8 +65,10 @@ def _python(code_or_args, **kw):
 def test_port_and_chip_smoke_import_no_jax():
     out = _python(_IMPORT_ALL)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split(maxsplit=1)
-    assert int(count) >= 12
+    summary, names = out.stdout.splitlines()
+    count, bad = summary.split(maxsplit=1)
+    assert int(count) >= 14
+    assert MODULES <= set(names.split())
     assert bad.strip() == "[]", bad
 
 
@@ -93,3 +115,22 @@ def test_sweep_dispatch_takes_the_plain_version_on_cpu():
             assert torch.equal(
                 distance._sweep(d, blocked, axis, reverse),
                 sweep_kernel.sweep_plain(d, blocked, axis, reverse))
+
+
+def test_fused_wrapper_refuses_cpu_tensors():
+    free = torch.ones((8, 128), dtype=torch.bool)
+    goals = torch.zeros(2, dtype=torch.int32)
+    before = dict(field_fused.launches)
+    for mode in ("single", "multi"):
+        with pytest.raises(ValueError, match="CUDA"):
+            field_fused.fused_kernel(free, goals, 8, mode)
+    assert field_fused.launches == before
+
+
+def test_fused_dispatch_takes_the_plain_version_on_cpu():
+    rng = np.random.default_rng(1)
+    free = torch.from_numpy(rng.random((8, 128)) > 0.2)
+    goals = torch.tensor([0, 300, 1000], dtype=torch.int32)
+    want = field_fused.fields_plain(free, goals)
+    assert torch.equal(field_fused.single_direction_fields(free, goals), want)
+    assert torch.equal(field_fused.multi_direction_fields(free, goals), want)

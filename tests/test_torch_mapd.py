@@ -1,8 +1,8 @@
 """The port's offline MAPD solve against the JAX package's.
 
-Full solves must give the same recorded paths, states and makespan; a state
-carried across mid-solve (``convert``) must step to the same next state; and
-the stale-view mode, not ported yet, must refuse to run.
+Full solves must give the same recorded paths, states and makespan, and a
+state carried across mid-solve (``convert``) must step to the same next
+state.  The stale-view mode has its own file, tests/test_torch_stale.py.
 """
 
 import dataclasses
@@ -24,6 +24,16 @@ from p2p_distributed_tswap_tpu_torch.core.config import SolverConfig
 from p2p_distributed_tswap_tpu_torch.solver import mapd as tmapd
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # Thousands of small tensor ops: on the CPU, intra-op threads cost more
+    # than they give, most of all with several test workers on the cores.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _instance(grid, n_agents, n_tasks, seed):
@@ -125,20 +135,6 @@ def test_zero_tasks_solve_is_empty():
     pt, st, mt = tmapd.solve_offline(grid, starts, tasks, device=CPU)
     assert mj == mt == 0
     assert pj.shape == pt.shape and sj.shape == st.shape
-
-
-def test_stale_mode_raises_not_implemented():
-    grid = Grid.from_ascii("\n".join(["." * 8] * 8))
-    starts, tasks = _instance(grid, 3, 3, seed=1)
-    cfg = SolverConfig(height=8, width=8, num_agents=3, visibility_radius=15,
-                       view_refresh_steps=2, swap_commit_delay=1)
-    assert cfg.stale_mode
-    s, tasks_t = tmapd.prepare_state(cfg, starts, tasks, grid.free,
-                                     device=CPU)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tmapd.mapd_step(cfg, s, tasks_t, torch.from_numpy(grid.free))
-    with pytest.raises(NotImplementedError):
-        tmapd.solve_offline(grid, starts, tasks, cfg, device=CPU)
 
 
 def test_invalid_inputs_rejected():
