@@ -27,11 +27,18 @@ into the next.  Phases:
                version (``torch.equal``): multi at the congested rung's
                in-step and prime chunks on its warehouse, single at the
                flagship's and 1k-512's on theirs, and ragged and
-               adversarial cases (G = 11, goals in a corner and on an
-               obstacle, a non-aligned grid, a maze where ``max_rounds``
-               = 2 binds); at the path shapes the time per launch, the
-               rounds each field took, the bound (bytes or integer
-               operations, whichever is larger) and the plain time.
+               adversarial cases (G = 1, 5, 11 and 13, goals in a corner
+               and on an obstacle, a non-aligned grid, a maze where
+               ``max_rounds`` = 2 binds, a serpentine maze whose shortest
+               paths cross every band edge many times, with
+               ``max_rounds`` binding and not), the in-step chunks again
+               at every cluster size forced (1, 2, 4, 8, 16) and the
+               256^2 prime at 2, 4 and 8 fields per cluster; each row
+               gives the launch's layout (fields and blocks per cluster,
+               blocks launched) and the rounds each field ran; at the
+               path shapes the time per launch, the bound (bytes or
+               integer operations, whichever is larger) and the plain
+               time.
 5. parity   — a full ``solve_offline`` of ``ref-50x100x100`` (seed 0) on
                ``cuda`` and on ``cpu``: paths and makespan identical, and the
                CUDA run went through the kernel.
@@ -172,11 +179,24 @@ SCENARIO_MASKS = {"warehouse": scenarios.FLAGSHIP, "1k-512": scenarios.MEDIUM,
                   "congested": scenarios.CONGESTED}
 
 
+SERPENTINE_PERIOD = 16  # columns per corridor and its wall
+
+
 def _mask(kind: str, h: int, w: int, rng: np.random.Generator) -> np.ndarray:
-    """(H, W) bool free mask: a scenario's own grid, or random obstacles."""
+    """(H, W) bool free mask: a scenario's own grid, a serpentine maze, or
+    random obstacles."""
     if kind in SCENARIO_MASKS:
         free = SCENARIO_MASKS[kind].grid_fn().free
         check(free.shape == (h, w), f"{kind} grid is not {h}x{w}")
+        return free
+    if kind == "serpentine":
+        # full-height walls with one gap each, at the bottom and the top in
+        # turn: a path across the grid runs the height of every corridor
+        free = np.ones((h, w), dtype=bool)
+        for j, x in enumerate(range(SERPENTINE_PERIOD - 1, w,
+                                    SERPENTINE_PERIOD)):
+            free[:, x] = False
+            free[h - 1 if j % 2 == 0 else 0, x] = True
         return free
     free = rng.random((h, w)) > (0.35 if kind == "maze" else 0.2)
     if kind == "border":
@@ -237,25 +257,47 @@ def phase_kernel(dev: torch.device, card: str) -> list:
 
 
 FUSED_CASES = (
-    # (mode, G, H, W, mask, max_rounds, timed): the in-step replan chunk
-    # and the prime chunk of each path, on its own grid, then ragged and
-    # adversarial calls made directly.  Every case puts goal 0 in the
-    # top-left corner, goal 1 on an obstacle (where the grid has one) and
-    # the last goal in the bottom-right corner.
-    ("multi", 4, 256, 256, "congested", 128, True),
-    ("multi", 64, 256, 256, "congested", 128, True),
-    ("single", 4, 1024, 1024, "warehouse", 128, True),
-    ("single", 64, 1024, 1024, "warehouse", 128, True),
-    ("single", 4, 512, 512, "1k-512", 128, True),
-    ("single", 128, 512, 512, "1k-512", 128, True),
-    ("multi", 11, 256, 256, "congested", 128, False),
-    ("single", 11, 256, 256, "congested", 128, False),
-    ("multi", 3, 100, 100, "random", 128, False),
-    ("single", 3, 100, 100, "random", 128, False),
-    ("multi", 11, 64, 256, "maze", 2, False),
-    ("single", 11, 64, 256, "maze", 2, False),
+    # (mode, G, H, W, mask, max_rounds, timed, forced layout): the in-step
+    # replan chunk and the prime chunk of each path, on its own grid, then
+    # ragged and adversarial calls made directly, then the in-step chunks
+    # at every cluster size and the 256^2 prime at other fields per
+    # cluster (timed, to compare layouts; no plain time).  Every case puts
+    # goal 0 in the top-left corner, goal 1 on an obstacle (where the grid
+    # has one) and the last goal in the bottom-right corner.
+    ("multi", 4, 256, 256, "congested", 128, True, {}),
+    ("multi", 64, 256, 256, "congested", 128, True, {}),
+    ("single", 4, 1024, 1024, "warehouse", 128, True, {}),
+    ("single", 64, 1024, 1024, "warehouse", 128, True, {}),
+    ("single", 4, 512, 512, "1k-512", 128, True, {}),
+    ("single", 128, 512, 512, "1k-512", 128, True, {}),
+    ("single", 1, 1024, 1024, "warehouse", 128, False, {}),
+    ("single", 3, 1024, 1024, "serpentine", 128, False, {}),
+    ("single", 3, 1024, 1024, "serpentine", 20, False, {}),
+    ("multi", 5, 256, 256, "serpentine", 128, False, {}),
+    ("multi", 5, 256, 256, "serpentine", 6, False, {}),
+    ("multi", 5, 256, 256, "congested", 128, False, {}),
+    ("single", 5, 256, 256, "congested", 128, False, {}),
+    ("multi", 13, 256, 256, "congested", 128, False, {}),
+    ("single", 13, 256, 256, "congested", 128, False, {}),
+    ("multi", 11, 256, 256, "congested", 128, False, {}),
+    ("single", 11, 256, 256, "congested", 128, False, {}),
+    ("multi", 3, 100, 100, "random", 128, False, {}),
+    ("single", 3, 100, 100, "random", 128, False, {}),
+    ("multi", 11, 64, 256, "maze", 2, False, {}),
+    ("single", 11, 64, 256, "maze", 2, False, {}),
+    *(("single", 4, 1024, 1024, "warehouse", 128, True, {"cluster": k})
+      for k in (1, 2, 4, 8, 16)),
+    *(("multi", 4, 256, 256, "congested", 128, True, {"cluster": k})
+      for k in (1, 2, 4, 8, 16)),
+    *(("multi", 64, 256, 256, "congested", 128, True, {"fields": f})
+      for f in (2, 4, 8)),
 )
 PLAIN_FUSED_TIMED = 3
+# PR 2's times per launch of the kernel this PR redesigned (one block per
+# field or per 8 fields; PERF.md, H100 80GB HBM3 at 700 W), by mode and shape
+PREVIOUS_MS = {"multi": {(4, 256, 256): 1.417, (64, 256, 256): 1.523},
+               "single": {(4, 1024, 1024): 2.898, (64, 1024, 1024): 3.377,
+                          (4, 512, 512): 6.955, (128, 512, 512): 10.27}}
 # The in-step replan chunk of each kernel's path: the shape whose times the
 # kernels line reports (every timed shape is in its "timed" list).
 STEP_SHAPES = {"sweep_scan": [4, 1024, 1024], "multi": [4, 256, 256],
@@ -288,35 +330,42 @@ def _fused_bound(g: int, h: int, w: int, field_rounds: torch.Tensor) -> dict:
 
 def phase_fused(dev: torch.device, card: str) -> list:
     rows = []
-    rng = np.random.default_rng(1)
-    for mode, g, h, w, kind, max_rounds, timed in FUSED_CASES:
+    plain = {}  # the plain codes of each input, computed once
+    for mode, g, h, w, kind, max_rounds, timed, forced in FUSED_CASES:
+        # one input per (G, H, W, mask): both instances and every layout
+        # see the same grid and goals
+        rng = np.random.default_rng(h * w + g)
         free_np = _mask(kind, h, w, rng)
         free = torch.from_numpy(free_np).to(dev)
         goals = torch.from_numpy(_fused_goals(free_np, g, rng)).to(dev)
-        got, rounds = field_fused.fused_kernel(free, goals, max_rounds, mode)
-        want = field_fused.fields_plain(free, goals, max_rounds)
+        layout = field_fused.launch_layout(dev, g, h, w, mode, **forced)
+        got, rounds = field_fused.fused_kernel(free, goals, max_rounds, mode,
+                                               **forced)
+        key = (g, h, w, kind, max_rounds)
+        if key not in plain:
+            plain[key] = field_fused.fields_plain(free, goals, max_rounds)
+        want = plain[key]
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
         equal = bool(torch.equal(got, want))
         row = {"mode": mode, "shape": [g, h, w], "mask": kind,
-               "max_rounds": max_rounds, "equal": equal, "max_abs_err": err,
-               "block_rounds_max": int(rounds.max())}
+               "max_rounds": max_rounds, "forced": forced, **layout,
+               "equal": equal, "max_abs_err": err,
+               "field_rounds": rounds.tolist(),
+               "field_rounds_mean": float(rounds.double().mean()),
+               "field_rounds_max": int(rounds.max())}
         if timed:
-            # rounds per field come from the single instance (one field
-            # per block); the multi instance runs each block to its
-            # slowest field, which the bound does not count
-            field_rounds = rounds if mode == "single" else \
-                field_fused.fused_kernel(free, goals, max_rounds,
-                                         "single")[1]
-            row["field_rounds_mean"] = float(field_rounds.double().mean())
-            row["field_rounds_max"] = int(field_rounds.max())
-            row.update(_fused_bound(g, h, w, field_rounds))
+            row.update(_fused_bound(g, h, w, rounds))
             row["ms"] = _per_launch_ms(
                 lambda: field_fused.fused_kernel(free, goals, max_rounds,
-                                                 mode), TIMED_LAUNCHES)
-            row["plain_ms"] = _per_launch_ms(
-                lambda: field_fused.fields_plain(free, goals, max_rounds),
-                PLAIN_FUSED_TIMED, reps=3)
+                                                 mode, **forced),
+                TIMED_LAUNCHES)
+            if not forced:
+                row["plain_ms"] = _per_launch_ms(
+                    lambda: field_fused.fields_plain(free, goals,
+                                                     max_rounds),
+                    PLAIN_FUSED_TIMED, reps=3)
+            row["previous_ms"] = PREVIOUS_MS[mode].get((g, h, w))
             row["card"] = card
         emit("fused", **row)
         check(equal, f"field_fused {mode} != plain at {row}")
@@ -555,12 +604,16 @@ def phase_flagship_single(dev: torch.device, default: dict) -> dict:
 
 
 def _kernel_entry(name: str, replaces: str, tpu_kernel: str, launches: int,
-                  rows: list, step_shape: list, card: str) -> dict:
+                  rows: list, step_shape: list, card: str, **extra) -> dict:
     """One kernel of the kernels line; ``ms``, ``plain_ms`` and the bound
-    are at ``step_shape``, the in-step replan chunk of its path."""
-    at = [r for r in rows if r["shape"] == step_shape and "ms" in r]
+    are at ``step_shape``, the in-step replan chunk of its path, in the
+    layout the path takes (rows with a forced layout are listed in
+    ``timed`` only)."""
+    at = [r for r in rows if r["shape"] == step_shape and "ms" in r
+          and not r.get("forced")]
     mean = lambda key: sum(r[key] for r in at) / len(at)  # noqa: E731
-    timed_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+    timed_keys = ("shape", "forced", "fields", "cluster", "blocks", "ms",
+                  "previous_ms", "plain_ms", "bound_ms", "bound_by",
                   "bytes_ms", "ops_ms", "field_rounds_mean", "axis",
                   "reverse")
     return {
@@ -576,7 +629,7 @@ def _kernel_entry(name: str, replaces: str, tpu_kernel: str, launches: int,
         "library_ms": None,  # no PyTorch call computes this function
         "timed": [{k: r[k] for k in timed_keys if k in r}
                   for r in rows if "ms" in r],
-        "card": card,
+        "card": card, **extra,
     }
 
 
@@ -611,12 +664,16 @@ def main() -> int:
             "field_fused_multi",
             "p2p_distributed_tswap_tpu/ops/field_fused.py:357",
             "field_fused._multi_kernel", congested["fused_multi_launches"],
-            multi_rows, STEP_SHAPES["multi"], card),
+            multi_rows, STEP_SHAPES["multi"], card,
+            design="cluster-split, PR 3",
+            previous_ms=PREVIOUS_MS["multi"][tuple(STEP_SHAPES["multi"])]),
         _kernel_entry(
             "field_fused_single",
             "p2p_distributed_tswap_tpu/ops/field_fused.py:166",
             "field_fused._kernel", single["main_path_counts"]["single"],
-            single_rows, STEP_SHAPES["single"], card),
+            single_rows, STEP_SHAPES["single"], card,
+            design="cluster-split, PR 3",
+            previous_ms=PREVIOUS_MS["single"][tuple(STEP_SHAPES["single"])]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

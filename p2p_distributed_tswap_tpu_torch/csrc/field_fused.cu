@@ -1,69 +1,98 @@
 // field_fused: the whole next-hop direction field of a batch of goals in one
 // launch -- goal seed, fast-sweeping fixpoint, next-hop codes -- as a
-// hand-written CUDA kernel for Hopper (sm_90a).
+// hand-written CUDA kernel for Hopper (sm_90a), each field split across the
+// blocks of a thread-block cluster.
 //
 // Replaces the two Pallas TPU kernels of the JAX package's fused field
-// engine, one template instance each (kFields = fields owned by one block):
-//   kFields = 1: p2p_distributed_tswap_tpu/ops/field_fused.py:166  _kernel
-//                (one field per program, MAPD_FUSED=single)
-//   kFields = 8: p2p_distributed_tswap_tpu/ops/field_fused.py:357  _multi_kernel
-//                (eight fields per program, MAPD_FUSED=1 or multi)
+// engine; both are this one kernel, launched with another number of fields
+// per cluster (F):
+//   p2p_distributed_tswap_tpu/ops/field_fused.py:166  _kernel
+//     (one field per program, MAPD_FUSED=single): F = 1;
+//   p2p_distributed_tswap_tpu/ops/field_fused.py:357  _multi_kernel
+//     (eight fields per program, MAPD_FUSED=1 or multi): F = 1..8, chosen by
+//     the wrapper; the last cluster holds the ragged rest and no goal is
+//     padded (the Pallas kernel's 8 fields were its sublane layout).
 //
-// What a block computes, for each field f it owns (goal g_f, one (H, W) mask
-// shared by every field, INF = 2^30):
+// What a cluster computes, for each field f it owns (goal g_f, one (H, W)
+// mask shared by every field, INF = 2^30):
 //   1. seed: d = 0 at cell g_f if that cell is free, INF everywhere else;
 //   2. rounds of four passes -- along W forward, along W reverse, along H
 //      forward, along H reverse -- each the recurrence of csrc/sweep_scan.cu
 //          run = INF; run = min(run + 1, d[i]); run = INF if blocked[i];
-//          d[i] = min(run, INF)
-//      until no pass of the round changes any of the block's fields, or
-//      max_rounds rounds have run.  The convergence flag is a
-//      __syncthreads_or per pass, never a host sync.  Rounds on a field that
-//      has converged change nothing, so per-block convergence gives the same
-//      fields as whole-batch convergence (ops/distance.py _fixpoint) even
-//      where max_rounds binds;
+//          d[i] = run
+//      until a round changes no cell of the field, or max_rounds rounds have
+//      run.  Each field keeps its own count (rounds_out, one int32 per
+//      field); rounds on a converged field change nothing, so per-field
+//      convergence gives the same fields as whole-batch convergence
+//      (ops/distance.py _fixpoint) even where max_rounds binds;
 //   3. codes: the neighbours in DIR_DXDY order (down, right, up, left), INF
 //      off the grid, strict < (the first minimum wins); code 4 (stay) where
 //      d == 0, d >= INF, best >= INF, best >= d or the cell is blocked.
 // Bit-identical to the plain version (ops/field_fused.py fields_plain).
 //
-// Layout.  Codes are written as (G, H, W) uint8 directly; the multi
-// instance's goals arrive padded to a multiple of 8 by repeating the last goal
-// (as the Pallas wrapper pads them) and the padded fields are computed and not
-// written.  The distance scratch is (G_pad, H, W) int32 in device memory,
-// allocated by the caller: a 1024^2 field is 4 MB and a 256^2 field 256 KB,
-// both past the 227 KB of shared memory a block may use, so the fields live
-// in device memory and mostly in the 50 MB L2.  The mask is held in shared
-// memory as bits, one 32-bit word per 32 cells of a row (rows padded to whole
-// words): 128 KB at 1024^2.  A small first kernel packs those bits from the
-// (H, W) uint8 mask into a device buffer, which every block copies in.
+// The split.  A cluster of K blocks (1..16, chosen by the wrapper so that
+// the clusters of a launch are resident together and fill the card) owns F
+// fields; block k owns rows [k H / K, (k+1) H / K) of each, a band.
+//   along W: rows are independent, so a pass needs only the block barrier:
+//     one warp per row, 32-cell chunks, a ballot for the last obstacle at or
+//     before each lane, a five-step shuffle segmented minimum of d[k] - k,
+//     and the carry (lane 31's run) from chunk to chunk in registers.  The
+//     field's rows are shared by 32 K warps.
+//   along H: the recurrence composes.  A band with no obstacle in a column
+//     maps an incoming run c to min(tail, c + band_len); a band with one
+//     emits its own tail whatever comes in; a cell above the band's first
+//     obstacle (in scan order) takes min(local, c + i + 1).  Phase 1: one
+//     thread per (field, column) scans its band from run = INF, writes the
+//     local values and publishes (tail, obstacle bit) in shared memory.
+//     Cluster barrier.  Phase 2: the thread reads the earlier bands'
+//     summaries (later ones, for the reverse pass) through distributed
+//     shared memory, composes its carry and lowers only the cells above the
+//     band's first obstacle, stopping where the carry stops winning (from
+//     there on it never wins again).  The chain a thread walks is H / K rows
+//     long, not H.
+//   convergence: each pass ORs a bit per changed field; after the round
+//     every block publishes its bits, a cluster barrier, and every thread
+//     ORs the K blocks' bits through distributed shared memory, so the
+//     whole cluster leaves the loop on the same round.  No host sync.
 //
-// Threads.  1024 per block, one block per SM at 1024^2 (the mask's shared
-// memory), __launch_bounds__ caps registers at 64 a thread.
-//   along W: one warp per row, as sweep_scan: 32-cell chunks, a ballot for
-//     the last obstacle at or before each lane, a five-step shuffle
-//     segmented minimum of d[k] - k, and the carry (lane 31's run) from the
-//     previous chunk.  The carry stays in the warp's registers from chunk to
-//     chunk of its row, so no other thread touches it.  kChunks chunks are
-//     loaded before their dependent scans run, to keep loads in flight.
-//   along H: one thread per (field, column), the run in a register down the
-//     rows, kUnroll rows loaded ahead of the dependent min chain.
-//   A cell is written back only when its value changes.
+// Layout.  Codes are written as (G, H, W) uint8 directly.  The distances
+// are (G, H, W) int32 in device memory, allocated by the caller: a 1024^2
+// field is 4 MB and a band of it at K = 16 256 KB, past the 227 KB of
+// shared memory a block may use, so every field lives in device memory and
+// the 50 MB L2 (16 MB at the in-step chunk of 4).  Shared memory holds the
+// band's mask as bits (one 32-bit word per 32 cells of a row) and the two
+// H-pass summaries (forward and reverse, one word per column per field).  A
+// small first kernel packs the bits from the (H, W) uint8 mask into a
+// device buffer, from which each block copies its band.  The codes of a
+// band's edge rows read the neighbour band's row after the last cluster
+// barrier (and a fence), bypassing L1.
 //
 // Bound on an H100.  What the function must move is the mask read once and
-// the codes written once, (H*W + G*H*W) bytes; the integer work is about 16
-// operations per cell per round plus about 23 per cell for the seed and the
-// codes, which at these shapes and measured round counts (chip_smoke.py)
-// outweighs the bytes.  Trouble spots, recorded and not tuned here: the
-// in-step chunk of 4 fields fills 4 (single) or 1 (multi) of 132 SMs, and at
-// 1024^2 each along-H pass is a 1024-long dependent chain per thread.
+// the codes written once, (H W + G H W) bytes; its integer work, about 12
+// operations per cell per round plus 15 per cell for the seed and the
+// codes, outweighs the bytes at the path's shapes.  What the time is made
+// of is latency: a dependent chain of L2 loads per thread along H, a
+// dependent shuffle chain per warp along W, and 3 cluster barriers a round.
+// The split cuts the first to H / K rows and spreads the second over K
+// times the warps, with G K blocks on G K SMs (64 at the in-step chunk of
+// 4 fields at K = 16) instead of G (or G / 8) before.
+//
+// Threads.  1024 per block, one block per SM; __launch_bounds__ caps
+// registers at 64 a thread.  kChunks chunks (W) or kUnroll rows (H) are
+// loaded ahead of each dependent scan.  A cell is written back only when
+// its value changes.
 //
 // Interface: plain C, loaded with ctypes.  The caller passes device pointers
 // and the CUDA stream; the launches are asynchronous and allocate nothing.
-// Returns cudaGetLastError() after the launches (0 = success).
+// Returns cudaGetLastError() after the launches (0 = success); a launch the
+// runtime refuses (a cluster that cannot be placed) returns its error.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -72,13 +101,28 @@ constexpr int kStay = 4;
 constexpr int kThreads = 1024;
 constexpr int kUnroll = 8;
 constexpr int kChunks = 8;
+constexpr int kMaxFields = 8;
+constexpr int kMaxCluster = 16;
 constexpr unsigned kFull = 0xffffffffu;
-// Shared memory a block may use on sm_90, less room for the static goals.
-constexpr long long kMaxBitsBytes = 232448 - 1024;
+// Summary word of a band's column: the run at the band's last row in scan
+// order, and this bit when the band holds an obstacle in that column.
+constexpr uint32_t kObstacle = 1u << 31;
+// Dynamic shared memory a block may use on sm_90, less room for the static.
+constexpr long long kMaxSmemBytes = 232448 - 1024;
 
-__device__ __forceinline__ bool is_blocked(const uint32_t* bits, int wp, int y,
-                                           int x) {
-  return (bits[y * wp + (x >> 5)] >> (x & 31)) & 1u;
+__host__ __device__ inline int band_start(int band, int H, int K) {
+  return static_cast<int>(static_cast<long long>(band) * H / K);
+}
+
+// Dynamic shared memory of one block: the widest band's mask bits and the
+// forward and reverse H summaries of F fields.
+long long smem_bytes(long long K, long long F, long long H, long long W) {
+  return 4 * (((H + K - 1) / K) * ((W + 31) / 32) + 2 * F * W);
+}
+
+__device__ __forceinline__ bool is_blocked(const uint32_t* bits, int wp,
+                                           int row, int x) {
+  return (bits[row * wp + (x >> 5)] >> (x & 31)) & 1u;
 }
 
 // bits[y * wp + j] bit b = blocked[y][32 j + b] (0 past the row's end): one
@@ -98,16 +142,29 @@ __global__ void pack_blocked_bits(const uint8_t* __restrict__ blocked,
   if (lane == 0) bits[word] = v;
 }
 
-// One pass along W over rows [0, nrows) of the block's fields (row r is row
-// r % H of field r / H).  Returns whether this thread changed a cell.
-__device__ bool pass_along_w(int* d, const uint32_t* bits, int nrows, int H,
-                             int W, int wp, bool reverse) {
+// What one block of a cluster owns: fields [0, nf) of d (each plane
+// H * W), rows [y0, y0 + bh) of each, their mask bits in shared memory.
+struct Band {
+  int* d;
+  const uint32_t* bits;
+  long long plane;
+  int nf, y0, bh, H, W, wp;
+};
+
+// One pass along W over the band's rows of the fields still active.
+// Returns a bit per field of which this thread changed a cell.
+__device__ unsigned pass_along_w(const Band& b, unsigned active,
+                                 bool reverse) {
   const int lane = threadIdx.x & 31;
   const unsigned upto_lane = kFull >> (31 - lane);  // lanes 0..lane
-  bool changed = false;
-  for (int r = threadIdx.x >> 5; r < nrows; r += kThreads / 32) {
-    const int y = r % H;
-    int* row = d + static_cast<long long>(r) * W;
+  const int W = b.W;
+  unsigned changed = 0;
+  for (int r = threadIdx.x >> 5; r < b.nf * b.bh; r += kThreads / 32) {
+    const int f = r / b.bh;
+    if (!((active >> f) & 1u)) continue;  // uniform per warp
+    const int row_in_band = r - f * b.bh;
+    int* row = b.d + f * b.plane +
+               static_cast<long long>(b.y0 + row_in_band) * W;
     int carry = kInf;
     for (int base0 = 0; base0 < W; base0 += 32 * kChunks) {
       int dv[kChunks];
@@ -120,7 +177,7 @@ __device__ bool pass_along_w(int* d, const uint32_t* bits, int nrows, int H,
         // Lanes past the row's end hold a free INF cell: they sit after
         // every valid lane in scan order and never reach a valid result.
         dv[k] = valid ? row[x] : kInf;
-        bl[k] = valid && is_blocked(bits, wp, y, x);
+        bl[k] = valid && is_blocked(b.bits, b.wp, row_in_band, x);
       }
 #pragma unroll
       for (int k = 0; k < kChunks; ++k) {
@@ -146,7 +203,7 @@ __device__ bool pass_along_w(int* d, const uint32_t* bits, int nrows, int H,
         const int out = min(run, kInf);
         if (i < W && out != dv[k]) {
           row[reverse ? W - 1 - i : i] = out;
-          changed = true;
+          changed |= 1u << f;
         }
         carry = __shfl_sync(kFull, run, 31);
       }
@@ -155,112 +212,216 @@ __device__ bool pass_along_w(int* d, const uint32_t* bits, int nrows, int H,
   return changed;
 }
 
-// One pass along H over the columns of `nfields` fields.  Returns whether
-// this thread changed a cell.
-__device__ bool pass_along_h(int* d, const uint32_t* bits, int nfields, int H,
-                             int W, int wp, bool reverse) {
-  bool changed = false;
-  const int ncols = nfields * W;
+// One pass along H over the band's columns of the fields still active, as
+// the two-phase scan across the cluster's bands; `sum` is this block's
+// summary buffer for the direction.  Every thread of the cluster must call
+// it (it holds a cluster barrier).  Returns a bit per field of which this
+// thread changed a cell.
+__device__ unsigned pass_along_h(const cg::cluster_group& cluster,
+                                 const Band& b, uint32_t* sum,
+                                 unsigned active, bool reverse) {
+  const int W = b.W;
+  const int ncols = b.nf * W;
+  unsigned changed = 0;
+  // Phase 1: each column of the band from run = INF; (tail, obstacle) out.
   for (int c = threadIdx.x; c < ncols; c += kThreads) {
     const int f = c / W;
+    if (!((active >> f) & 1u)) continue;
     const int x = c - f * W;
-    int* col = d + static_cast<long long>(f) * H * W + x;
-    const uint32_t* mcol = bits + (x >> 5);
+    int* col = b.d + f * b.plane + static_cast<long long>(b.y0) * W + x;
+    const uint32_t* mcol = b.bits + (x >> 5);
     const int shift = x & 31;
     int run = kInf;
+    uint32_t obstacle = 0;
     int i = 0;
-    for (; i + kUnroll <= H; i += kUnroll) {
+    for (; i + kUnroll <= b.bh; i += kUnroll) {
+      int dv[kUnroll];
+      uint32_t mv[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int y = reverse ? b.bh - 1 - (i + k) : i + k;
+        dv[k] = col[static_cast<long long>(y) * W];
+        mv[k] = (mcol[y * b.wp] >> shift) & 1u;
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int y = reverse ? b.bh - 1 - (i + k) : i + k;
+        run = min(run + 1, dv[k]);
+        if (mv[k]) run = kInf;
+        obstacle |= mv[k];
+        if (run != dv[k]) {
+          col[static_cast<long long>(y) * W] = run;
+          changed |= 1u << f;
+        }
+      }
+    }
+    for (; i < b.bh; ++i) {
+      const int y = reverse ? b.bh - 1 - i : i;
+      const int dv = col[static_cast<long long>(y) * W];
+      const uint32_t mv = (mcol[y * b.wp] >> shift) & 1u;
+      run = min(run + 1, dv);
+      if (mv) run = kInf;
+      obstacle |= mv;
+      if (run != dv) {
+        col[static_cast<long long>(y) * W] = run;
+        changed |= 1u << f;
+      }
+    }
+    sum[c] = static_cast<uint32_t>(run) | (obstacle ? kObstacle : 0u);
+  }
+  cluster.sync();
+  // Phase 2: the carry into the band from the bands before it in scan
+  // order, then the cells above the band's first obstacle.
+  const int K = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  for (int c = threadIdx.x; c < ncols; c += kThreads) {
+    const int f = c / W;
+    if (!((active >> f) & 1u)) continue;
+    int carry = kInf;
+    const int n_before = reverse ? K - 1 - rank : rank;
+#pragma unroll 4
+    for (int j = 0; j < n_before; ++j) {
+      const int k = reverse ? K - 1 - j : j;
+      const uint32_t s = *cluster.map_shared_rank(sum + c, k);
+      const int tail = static_cast<int>(s & ~kObstacle);
+      const int len = band_start(k + 1, b.H, K) - band_start(k, b.H, K);
+      carry = (s & kObstacle) ? tail : min(tail, carry + len);
+    }
+    if (carry >= kInf) continue;
+    const int x = c - f * W;
+    int* col = b.d + f * b.plane + static_cast<long long>(b.y0) * W + x;
+    const uint32_t* mcol = b.bits + (x >> 5);
+    const int shift = x & 31;
+    // kUnroll rows loaded ahead, as in phase 1; the walk stops at the
+    // band's first obstacle or where the carry stops winning, after which
+    // it never wins again (the local values rise by at most one a row).
+    bool open = true;
+    for (int i = 0; open && i < b.bh; i += kUnroll) {
       int dv[kUnroll];
       bool mv[kUnroll];
 #pragma unroll
       for (int k = 0; k < kUnroll; ++k) {
-        const int y = reverse ? H - 1 - (i + k) : i + k;
-        dv[k] = col[static_cast<long long>(y) * W];
-        mv[k] = (mcol[y * wp] >> shift) & 1u;
+        const int y = reverse ? b.bh - 1 - (i + k) : i + k;
+        const bool in_band = i + k < b.bh;
+        dv[k] = in_band ? col[static_cast<long long>(y) * W] : 0;
+        mv[k] = !in_band || ((mcol[y * b.wp] >> shift) & 1u);
       }
 #pragma unroll
       for (int k = 0; k < kUnroll; ++k) {
-        const int y = reverse ? H - 1 - (i + k) : i + k;
-        run = min(run + 1, dv[k]);
-        if (mv[k]) run = kInf;
-        const int out = min(run, kInf);
-        if (out != dv[k]) {
-          col[static_cast<long long>(y) * W] = out;
-          changed = true;
+        const int cand = carry + i + k + 1;
+        open = open && !mv[k] && cand < dv[k];
+        if (open) {
+          const int y = reverse ? b.bh - 1 - (i + k) : i + k;
+          col[static_cast<long long>(y) * W] = cand;
+          changed |= 1u << f;
         }
-      }
-    }
-    for (; i < H; ++i) {
-      const int y = reverse ? H - 1 - i : i;
-      const int dv = col[static_cast<long long>(y) * W];
-      run = min(run + 1, dv);
-      if ((mcol[y * wp] >> shift) & 1u) run = kInf;
-      const int out = min(run, kInf);
-      if (out != dv) {
-        col[static_cast<long long>(y) * W] = out;
-        changed = true;
       }
     }
   }
   return changed;
 }
 
-template <int kFields>
 __global__ void __launch_bounds__(kThreads, 1)
-    field_fused_kernel(const int* __restrict__ goals, int g_out,
+    field_fused_kernel(const int* __restrict__ goals, int G, int F,
                        const uint32_t* __restrict__ bits_in, int* dist,
-                       uint8_t* __restrict__ codes, int* __restrict__ rounds_out,
-                       int H, int W, int wp, int max_rounds) {
-  extern __shared__ uint32_t bits[];  // H * wp words, bit set = blocked
-  __shared__ int goal_s[kFields];
-  const int plane = H * W;  // the wrapper keeps kFields * H * W < 2^31
-  const long long g0 = static_cast<long long>(blockIdx.x) * kFields;
-  int* d = dist + g0 * plane;
+                       uint8_t* __restrict__ codes,
+                       int* __restrict__ rounds_out, int H, int W, int wp,
+                       int max_rounds) {
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int K = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long plane = static_cast<long long>(H) * W;
+  const int f0 = static_cast<int>(blockIdx.x / K) * F;
+  const int nf = min(F, G - f0);
+  const int y0 = band_start(rank, H, K);
+  const int y1 = band_start(rank + 1, H, K);
 
-  for (int i = threadIdx.x; i < H * wp; i += kThreads) bits[i] = bits_in[i];
-  if (threadIdx.x < kFields) goal_s[threadIdx.x] = goals[g0 + threadIdx.x];
+  extern __shared__ uint32_t smem[];
+  uint32_t* bits = smem;  // the band's rows, bit set = blocked
+  // Same offsets in every block of the cluster, for map_shared_rank.
+  uint32_t* sum_fwd = bits + ((H + K - 1) / K) * wp;
+  uint32_t* sum_rev = sum_fwd + F * W;
+  __shared__ int goal_s[kMaxFields];
+  __shared__ unsigned flags[2];  // changed-field bits, by round parity
+
+  for (int i = threadIdx.x; i < (y1 - y0) * wp; i += kThreads) {
+    bits[i] = bits_in[static_cast<long long>(y0) * wp + i];
+  }
+  if (threadIdx.x < nf) goal_s[threadIdx.x] = goals[f0 + threadIdx.x];
+  if (threadIdx.x < 2) flags[threadIdx.x] = 0;
   __syncthreads();
 
+  const Band band{dist + f0 * plane, bits, plane, nf, y0, y1 - y0, H, W, wp};
+
   // ---- seed: 0 at the goal cell if it is free, INF elsewhere ----
-  for (int f = 0; f < kFields; ++f) {
+  for (int f = 0; f < nf; ++f) {
     const int goal = goal_s[f];
-    int* df = d + f * plane;
-    for (int cell = threadIdx.x; cell < plane; cell += kThreads) {
+    int* df = band.d + f * plane;
+    for (int cell = y0 * W + threadIdx.x; cell < y1 * W; cell += kThreads) {
       const int y = cell / W;
-      const bool seed = cell == goal && !is_blocked(bits, wp, y, cell - y * W);
+      const bool seed =
+          cell == goal && !is_blocked(bits, wp, y - y0, cell - y * W);
       df[cell] = seed ? 0 : kInf;
     }
   }
   __syncthreads();
 
-  // ---- fixpoint: rounds of four passes until none changes a cell ----
+  // ---- fixpoint: rounds of four passes, per field, until none changes ----
+  unsigned active = (1u << nf) - 1;
   int rounds = 0;
-  bool changed = true;
-  while (changed && rounds < max_rounds) {
-    int c = __syncthreads_or(
-        pass_along_w(d, bits, kFields * H, H, W, wp, false));
-    c |= __syncthreads_or(pass_along_w(d, bits, kFields * H, H, W, wp, true));
-    c |= __syncthreads_or(pass_along_h(d, bits, kFields, H, W, wp, false));
-    c |= __syncthreads_or(pass_along_h(d, bits, kFields, H, W, wp, true));
-    changed = c != 0;
+  while (active != 0 && rounds < max_rounds) {
+    unsigned* flag = &flags[rounds & 1];
+    // The other parity's readers finished before this round's barriers.
+    if (threadIdx.x == 0) *flag = 0;
+    unsigned c = pass_along_w(band, active, false);
+    __syncthreads();
+    c |= pass_along_w(band, active, true);
+    __syncthreads();
+    c |= pass_along_h(cluster, band, sum_fwd, active, false);
+    __syncthreads();
+    c |= pass_along_h(cluster, band, sum_rev, active, true);
+    c = __reduce_or_sync(kFull, c);
+    if ((threadIdx.x & 31) == 0 && c) atomicOr(flag, c);
+    cluster.sync();
+    unsigned still = 0;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) still |= *cluster.map_shared_rank(flag, k);
     ++rounds;
+    if (rank == 0 && threadIdx.x == 0) {  // the fields that converged
+      const unsigned done = active & ~still;
+      for (int f = 0; f < nf; ++f) {
+        if ((done >> f) & 1u) rounds_out[f0 + f] = rounds;
+      }
+    }
+    active &= still;
   }
-  if (threadIdx.x == 0) rounds_out[blockIdx.x] = rounds;
+  if (rank == 0 && threadIdx.x == 0) {  // the fields max_rounds stopped
+    for (int f = 0; f < nf; ++f) {
+      if ((active >> f) & 1u) rounds_out[f0 + f] = rounds;
+    }
+  }
+  // Every band's distances visible to the cluster; after this barrier no
+  // block reads another's shared memory, so each may run on to its exit.
+  __threadfence();
+  cluster.sync();
 
-  // ---- next-hop codes of the fields that are not padding ----
-  const long long left_over = g_out - g0;
-  const int nreal = left_over < kFields ? static_cast<int>(left_over) : kFields;
-  for (int f = 0; f < nreal; ++f) {
-    const int* df = d + f * plane;
-    uint8_t* cf = codes + (g0 + f) * plane;
-    for (int cell = threadIdx.x; cell < plane; cell += kThreads) {
+  // ---- next-hop codes of the band ----
+  for (int f = 0; f < nf; ++f) {
+    const int* df = band.d + f * plane;
+    uint8_t* cf = codes + (f0 + f) * plane;
+#pragma unroll 4  // the cells are independent: keep their loads in flight
+    for (int cell = y0 * W + threadIdx.x; cell < y1 * W; cell += kThreads) {
       const int y = cell / W;
       const int x = cell - y * W;
       const int cur = df[cell];
+      // rows past the band's edges were written by the neighbour blocks
+      const int down = y + 1 >= H ? kInf
+                       : y + 1 < y1 ? df[cell + W]
+                                    : __ldcg(df + cell + W);
+      const int up = y == 0 ? kInf : y > y0 ? df[cell - W]
+                                            : __ldcg(df + cell - W);
       // DIR_DXDY order: (0,1) down, (1,0) right, (0,-1) up, (-1,0) left
-      const int nv[4] = {y + 1 < H ? df[cell + W] : kInf,
-                         x + 1 < W ? df[cell + 1] : kInf,
-                         y > 0 ? df[cell - W] : kInf,
+      const int nv[4] = {down, x + 1 < W ? df[cell + 1] : kInf, up,
                          x > 0 ? df[cell - 1] : kInf};
       int best = kStay;
       int best_val = kInf;
@@ -272,65 +433,107 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       const bool stay = cur == 0 || cur >= kInf || best_val >= kInf ||
-                        best_val >= cur || is_blocked(bits, wp, y, x);
+                        best_val >= cur || is_blocked(bits, wp, y - y0, x);
       cf[cell] = static_cast<uint8_t>(stay ? kStay : best);
     }
   }
 }
 
-template <int kFields>
-int launch(const int* goals, long long g_pad, long long g_out,
-           const uint32_t* bits, int* dist, uint8_t* codes, int* rounds,
-           int H, int W, int wp, int max_rounds, cudaStream_t s) {
-  const int smem = H * wp * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      field_fused_kernel<kFields>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  field_fused_kernel<kFields>
-      <<<static_cast<unsigned>(g_pad / kFields), kThreads, smem, s>>>(
-          goals, static_cast<int>(g_out), bits, dist, codes, rounds, H, W, wp,
-          max_rounds);
-  return static_cast<int>(cudaGetLastError());
+// The kernel's attributes, set once per process: the most dynamic shared
+// memory a block may take, and clusters of up to 16 blocks.
+cudaError_t configure() {
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        field_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxSmemBytes));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        field_fused_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  return err;
+}
+
+cudaLaunchConfig_t launch_config(long long blocks, int K, long long smem,
+                                 cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(K);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+bool bad_layout(long long K, long long F, long long H, long long W) {
+  return F < 1 || F > kMaxFields || K < 1 || K > kMaxCluster || H < K ||
+         W < 1 || H * W > 0x7fffffffLL ||
+         smem_bytes(K, F, H, W) > kMaxSmemBytes;
 }
 
 }  // namespace
 
-// goals (g_pad,) int32; blocked (H, W) uint8, nonzero = obstacle; bits
-// (H, ceil(W/32)) 32-bit scratch; dist (g_pad, H, W) int32 scratch; codes
-// (g_out, H, W) uint8 out; rounds (g_pad / fields_per_block,) int32 out: the
-// rounds each block ran.  fields_per_block is 1 or 8 and divides g_pad.
-extern "C" int field_fused(const void* goals, long long g_pad, long long g_out,
-                           const void* blocked, void* bits, void* dist,
-                           void* codes, void* rounds, long long H, long long W,
-                           int fields_per_block, int max_rounds,
-                           void* stream) {
-  const long long wp = (W + 31) / 32;
-  if ((fields_per_block != 1 && fields_per_block != 8) || H < 1 || W < 1 ||
-      g_out < 1 || g_pad < g_out || g_pad % fields_per_block != 0 ||
-      g_pad / fields_per_block > 0x7fffffffLL || max_rounds < 0 ||
-      H * wp * 4 > kMaxBitsBytes ||
-      fields_per_block * H * W > 0x7fffffffLL) {
+// How many clusters of `cluster` blocks, each owning `fields_per_cluster`
+// fields of an (H, W) grid, the card can hold at once (0: none); into *out.
+extern "C" int field_fused_max_clusters(int cluster, int fields_per_cluster,
+                                        long long H, long long W, int* out) {
+  if (bad_layout(cluster, fields_per_cluster, H, W)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(cluster, cluster,
+                    smem_bytes(cluster, fields_per_cluster, H, W), nullptr,
+                    &attr);
+  err = cudaOccupancyMaxActiveClusters(
+      out, reinterpret_cast<const void*>(field_fused_kernel), &cfg);
+  return static_cast<int>(err);
+}
+
+// goals (G,) int32; blocked (H, W) uint8, nonzero = obstacle; bits
+// (H, ceil(W/32)) 32-bit scratch; dist (G, H, W) int32 scratch; codes
+// (G, H, W) uint8 out; rounds (G,) int32 out: the rounds each field ran.
+// ceil(G / fields_per_cluster) clusters of `cluster` blocks; cluster <= H.
+extern "C" int field_fused(const void* goals, long long G, const void* blocked,
+                           void* bits, void* dist, void* codes, void* rounds,
+                           long long H, long long W, int fields_per_cluster,
+                           int cluster, int max_rounds, void* stream) {
+  const long long F = fields_per_cluster;
+  const long long blocks = (G + F - 1) / F * cluster;
+  if (bad_layout(cluster, F, H, W) || G < 1 || G > 0x7fffffffLL ||
+      blocks > 0x7fffffffLL || max_rounds < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long wp = (W + 31) / 32;
   const int h = static_cast<int>(H);
   const int w = static_cast<int>(W);
   const int wpi = static_cast<int>(wp);
   uint32_t* bp = static_cast<uint32_t*>(bits);
   const long long pack_threads = H * wp * 32;
   pack_blocked_bits<<<static_cast<unsigned>((pack_threads + 255) / 256), 256,
-                       0, s>>>(static_cast<const uint8_t*>(blocked), bp, h, w,
-                               wpi);
-  const cudaError_t err = cudaGetLastError();
+                      0, s>>>(static_cast<const uint8_t*>(blocked), bp, h, w,
+                              wpi);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int* gp = static_cast<const int*>(goals);
-  int* dp = static_cast<int*>(dist);
-  uint8_t* cp = static_cast<uint8_t*>(codes);
-  int* rp = static_cast<int*>(rounds);
-  if (fields_per_block == 1) {
-    return launch<1>(gp, g_pad, g_out, bp, dp, cp, rp, h, w, wpi, max_rounds,
-                     s);
-  }
-  return launch<8>(gp, g_pad, g_out, bp, dp, cp, rp, h, w, wpi, max_rounds, s);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(blocks, cluster, smem_bytes(cluster, F, H, W), s, &attr);
+  err = cudaLaunchKernelEx(&cfg, field_fused_kernel,
+                           static_cast<const int*>(goals), static_cast<int>(G),
+                           fields_per_cluster,
+                           static_cast<const uint32_t*>(bp),
+                           static_cast<int*>(dist),
+                           static_cast<uint8_t*>(codes),
+                           static_cast<int*>(rounds), h, w, wpi, max_rounds);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

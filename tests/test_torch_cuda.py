@@ -143,8 +143,7 @@ def test_fused_kernel_matches_plain(cuda, mode, g, h, w, density, max_rounds):
     assert field_fused.launches[mode] == before[mode] + 1
     assert got.dtype == torch.uint8 and got.shape == (g, h, w)
     assert torch.equal(got.cpu(), want)
-    fields = 1 if mode == "single" else 8
-    assert rounds.shape == (-(-g // fields),)
+    assert rounds.shape == (g,) and rounds.dtype == torch.int32
     assert int(rounds.max()) <= max_rounds
 
 
@@ -166,6 +165,93 @@ def test_fused_wrapper_checks_inputs(cuda):
     big = torch.ones((2048, 1024), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         field_fused.fused_kernel(big, goals, 8, "single")
+    with pytest.raises(ValueError, match="cluster"):
+        field_fused.fused_kernel(free, goals, 8, "single", cluster=9)
+    with pytest.raises(ValueError, match="cluster"):
+        field_fused.fused_kernel(free, goals, 8, "single", cluster=17)
+    with pytest.raises(ValueError, match="fields"):
+        field_fused.fused_kernel(free, goals, 8, "single", fields=2)
+    with pytest.raises(ValueError, match="fields"):
+        field_fused.fused_kernel(free, goals, 8, "multi", fields=9)
+
+
+def _check_fused(cuda, free, goals, max_rounds, mode, **layout):
+    """The kernel == its plain version; returns the (G,) rounds."""
+    want = field_fused.fields_plain(free, goals, max_rounds)
+    got, rounds = field_fused.fused_kernel(free.to(cuda), goals.to(cuda),
+                                           max_rounds, mode, **layout)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert rounds.shape == goals.shape and int(rounds.min()) >= 0
+    assert int(rounds.max()) <= max_rounds
+    return rounds.cpu()
+
+
+@pytest.mark.parametrize("mode", ["single", "multi"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_fused_kernel_at_every_cluster_size(cuda, mode, cluster):
+    if field_fused.max_active_clusters(cuda, cluster, 1, 96, 256) == 0:
+        pytest.skip(f"the card places no cluster of {cluster} blocks")
+    free, goals = _fused_inputs(cluster, 5, 96, 256, 0.3)
+    _check_fused(cuda, free, goals, 128, mode, cluster=cluster)
+
+
+@pytest.mark.parametrize("mode", ["single", "multi"])
+@pytest.mark.parametrize("g", [1, 3, 4, 5, 11, 64])
+def test_fused_kernel_batch_sizes(cuda, mode, g):
+    free, goals = _fused_inputs(g, g, 64, 256, 0.25)
+    layout = field_fused.launch_layout(cuda, g, 64, 256, mode)
+    assert layout["blocks"] == layout["clusters"] * layout["cluster"]
+    assert layout["clusters"] == -(-g // layout["fields"])  # no padding
+    _check_fused(cuda, free, goals, 128, mode)
+
+
+@pytest.mark.parametrize("mode", ["single", "multi"])
+@pytest.mark.parametrize("cluster", [3, 4])
+def test_fused_goals_on_band_edges(cuda, mode, cluster):
+    """Goals on the last row of a band and the first row of the next."""
+    h, w = 64, 128
+    free, _ = _fused_inputs(11, 1, h, w, 0.2)
+    edges = [k * h // cluster for k in range(1, cluster)]
+    rows = [r for e in edges for r in (e - 1, e)]
+    rng = np.random.default_rng(cluster)
+    goals = torch.tensor([r * w + int(rng.integers(w)) for r in rows],
+                         dtype=torch.int32)
+    _check_fused(cuda, free, goals, 128, mode, cluster=cluster)
+
+
+@pytest.mark.parametrize("mode", ["single", "multi"])
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_fused_round_cap_binds_on_a_maze(cuda, mode, cluster):
+    free, goals = _fused_inputs(5, 11, 64, 256, 0.35)
+    full = field_fused.fields_plain(free, goals)
+    for max_rounds in (1, 2, 3):
+        rounds = _check_fused(cuda, free, goals, max_rounds, mode,
+                              cluster=cluster)
+        assert int(rounds.max()) == max_rounds
+        assert not torch.equal(
+            field_fused.fields_plain(free, goals, max_rounds), full)
+
+
+def test_fused_rounds_agree_between_instances(cuda):
+    """Per-field rounds: one field per cluster (single), and several per
+    cluster (multi, fields 1, 3 and 8: the last cluster ragged)."""
+    free, goals = _fused_inputs(6, 20, 64, 256, 0.3)
+    want = _check_fused(cuda, free, goals, 128, "single")
+    for fields in (1, 3, 8):
+        got = _check_fused(cuda, free, goals, 128, "multi", fields=fields,
+                           cluster=4)
+        assert torch.equal(got, want)
+
+
+def test_fused_layout_at_the_in_step_chunk(cuda):
+    """At the in-step chunk of 4 fields each field is split over a cluster
+    of more than one block, and the multi instance pads nothing."""
+    for mode, h in (("single", 1024), ("multi", 256)):
+        layout = field_fused.launch_layout(cuda, 4, h, h, mode)
+        assert layout["fields"] == 1 and layout["clusters"] == 4
+        assert layout["cluster"] > 1
+        assert layout["blocks"] == 4 * layout["cluster"]
 
 
 @pytest.mark.parametrize("mode,env", [("multi", "1"), ("multi", "multi"),

@@ -175,3 +175,168 @@ def test_direction_fields_on_cpu_under_mapd_fused(monkeypatch, env):
     got = td.direction_fields(torch.from_numpy(free), torch.from_numpy(goals))
     assert tff.launches == launches
     np.testing.assert_array_equal(want, got.numpy())
+
+
+# The kernel's split of a field over a cluster of blocks, emulated in plain
+# PyTorch: each block owns a band of rows, and the along-H pass is a
+# two-phase scan across the bands (csrc/field_fused.cu pass_along_h).
+
+INF = sweep_kernel.INF
+
+
+def _band_edges(h, bands):
+    return [k * h // bands for k in range(bands + 1)]
+
+
+def _band_sweep_h(d, blocked, bands, reverse):
+    """One along-H sweep of (R, H, W) ``d`` as ``bands`` blocks run it.
+    Phase 1: each band scans from run = INF (``sweep_plain`` on the band
+    alone) and publishes per column its tail (the run at its last row in
+    scan order) and whether it holds an obstacle.  Phase 2: each band
+    composes the carry from the summaries of the bands before it in scan
+    order, and lowers the cells above its first obstacle to
+    min(local, carry + i + 1)."""
+    _, h, _ = d.shape
+    edges = _band_edges(h, bands)
+    blk = blocked.bool()
+    local, tail, obstacle = [], [], []
+    for k in range(bands):
+        y0, y1 = edges[k], edges[k + 1]
+        loc = sweep_kernel.sweep_plain(d[:, y0:y1].contiguous(),
+                                       blocked[y0:y1].contiguous(), 1, reverse)
+        local.append(loc)
+        tail.append(loc[:, 0 if reverse else -1])
+        obstacle.append(blk[y0:y1].any(0))
+    order = list(range(bands))[::-1] if reverse else list(range(bands))
+    out = torch.empty_like(d)
+    for pos, k in enumerate(order):
+        carry = torch.full_like(tail[k], INF)
+        for j in order[:pos]:
+            n = edges[j + 1] - edges[j]
+            carry = torch.where(obstacle[j][None], tail[j],
+                                torch.minimum(tail[j], carry + n))
+        y0, y1 = edges[k], edges[k + 1]
+        n = y1 - y0
+        i = torch.arange(n, dtype=torch.int32)
+        b = blk[y0:y1]
+        if reverse:
+            i = i.flip(0)
+            clear = b.flip(0).cumsum(0).flip(0) == 0
+        else:
+            clear = b.cumsum(0) == 0
+        cand = carry[:, None, :] + i[None, :, None] + 1
+        out[:, y0:y1] = torch.where(clear[None],
+                                    torch.minimum(local[k], cand), local[k])
+    return out
+
+
+def _band_inputs(seed, r, h, w, kind):
+    rng = np.random.default_rng(seed)
+    free = rng.random((h, w)) > (0.35 if kind == "maze" else 0.2)
+    if kind == "columns":  # whole columns blocked, whole columns free
+        free[:, 1::5] = False
+        free[:, 2::5] = True
+    d = np.where(rng.random((r, h, w)) > 0.95, rng.integers(0, 60, (r, h, w)),
+                 INF)
+    d = np.where(free[None], d, INF).astype(np.int32)
+    return torch.from_numpy(d), torch.from_numpy((~free).astype(np.uint8))
+
+
+@pytest.mark.parametrize("kind", ["random", "maze", "columns"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("bands", [1, 2, 3, 8, 16])
+def test_band_split_sweep_equals_the_whole_column_sweep(bands, reverse,
+                                                         kind):
+    h = 37 if bands in (2, 3, 8) else 48  # 37: bands of unequal length
+    d, blocked = _band_inputs(bands * 7 + reverse, 3, h, 29, kind)
+    want = sweep_kernel.sweep_plain(d, blocked, 1, reverse)
+    np.testing.assert_array_equal(
+        _band_sweep_h(d, blocked, bands, reverse).numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_band_carry_stops_winning_for_good(seed):
+    """Phase 2 stops at the first cell where the carry does not beat the
+    local value: below it, up to the band's first obstacle, it never wins
+    again (the local values rise by at most one a row)."""
+    d, blocked = _band_inputs(seed, 4, 24, 31, "random")
+    loc = sweep_kernel.sweep_plain(d, torch.zeros_like(blocked), 1, False)
+    carry = torch.from_numpy(
+        np.random.default_rng(seed).integers(0, 40, (4, 1, 31))
+    ).to(torch.int32)
+    wins = carry + torch.arange(24, dtype=torch.int32)[None, :, None] + 1 < loc
+    # once False down a column, False for every later row
+    assert torch.equal(wins, wins.cumprod(1).bool())
+
+
+def _band_fields(free, goals, bands, max_rounds):
+    """The whole kernel emulated: seed, rounds of W forward, W reverse and
+    the band-split H passes, each field leaving the loop on the first round
+    that changes none of its cells, then the codes."""
+    h, w = free.shape
+    blocked = (~free).to(torch.uint8)
+    flat = torch.zeros(h * w, dtype=torch.bool)
+    fields = []
+    for goal in goals.tolist():
+        seed = flat.clone()
+        seed[goal] = bool(free.reshape(-1)[goal])
+        d = torch.where(seed, 0, INF).to(torch.int32).reshape(1, h, w)
+        for _ in range(max_rounds):
+            before = d
+            d = sweep_kernel.sweep_plain(d, blocked, 2, False)
+            d = sweep_kernel.sweep_plain(d, blocked, 2, True)
+            d = _band_sweep_h(d, blocked, bands, False)
+            d = _band_sweep_h(d, blocked, bands, True)
+            if torch.equal(d, before):
+                break
+        fields.append(d)
+    return td.directions_from_distance(torch.cat(fields), free)
+
+
+@pytest.mark.parametrize("bands,max_rounds", [(2, 2), (5, 2), (3, 128),
+                                              (8, 128)])
+def test_band_split_kernel_matches_the_pallas_kernel(interpret_mode, bands,
+                                                     max_rounds):
+    """Per-field convergence over band-split passes gives the JAX
+    package's codes, where ``max_rounds`` binds and where it does not."""
+    free = _free(5, 32, 128, 0.35)
+    goals = _goals(free, 6, seed=bands)
+    want = np.asarray(jff.single_direction_fields(
+        jnp.asarray(free), jnp.asarray(goals), max_rounds))
+    got = _band_fields(torch.from_numpy(free), torch.from_numpy(goals), bands,
+                       max_rounds)
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("clusters,h,want", [
+    (4, 1024, 16),   # the in-step chunk: 4 clusters of 16 blocks
+    (9, 1024, 8),    # more clusters than fit at 16
+    (64, 256, 2),    # the 256^2 prime
+    (200, 512, 1),   # more fields than SMs
+    (4, 5, 4),       # at most one row per band: 5 rows take 4, not 8
+])
+def test_choose_cluster(clusters, h, want):
+    # an H100's answer for 1024-thread blocks: 132 SMs, clusters of 16
+    # only one per GPC
+    fits = {16: 8, 8: 16, 4: 32, 2: 66, 1: 132}
+    assert tff.choose_cluster(clusters, h, fits.__getitem__) == want
+
+
+@pytest.mark.parametrize("g,want", [(1, 1), (4, 1), (132, 1), (133, 2),
+                                    (400, 4), (5000, 8)])
+def test_choose_fields_pads_nothing(g, want):
+    fields = tff.choose_fields(g, 132)
+    assert fields == want
+    clusters = -(-g // fields)
+    assert 0 <= clusters * fields - g < fields  # only the last is ragged
+
+
+@pytest.mark.parametrize("h,w,fields,fits", [
+    (1024, 1024, 1, True), (2048, 1024, 1, False), (256, 256, 8, True),
+    (1024, 1536, 1, True), (8, 196608, 1, False)])
+def test_shared_memory_gate(h, w, fields, fits):
+    """The whole grid's mask bits and the summaries fit one block, so every
+    cluster size fits too."""
+    assert (tff.smem_bytes(1, fields, h, w) <= tff.MAX_SMEM_BYTES) == fits
+    assert all(tff.smem_bytes(k, fields, h, w)
+               <= tff.smem_bytes(1, fields, h, w) for k in (2, 4, 8, 16))
