@@ -31,14 +31,13 @@ into the next.  Phases:
                and on an obstacle, a non-aligned grid, a maze where
                ``max_rounds`` = 2 binds, a serpentine maze whose shortest
                paths cross every band edge many times, with
-               ``max_rounds`` binding and not), the in-step chunks again
-               at every cluster size forced (1, 2, 4, 8, 16) and the
-               256^2 prime at 2, 4 and 8 fields per cluster; each row
-               gives the launch's layout (fields and blocks per cluster,
-               blocks launched) and the rounds each field ran; at the
-               path shapes the time per launch, the bound (bytes or
-               integer operations, whichever is larger) and the plain
-               time.
+               ``max_rounds`` binding and not), and the in-step chunks
+               again at every cluster size forced (1, 2, 4, 8, 16); each
+               row gives the launch's layout (blocks per cluster, blocks
+               launched) and the rounds each field ran; at the path
+               shapes the time per launch (with each of its runs, for the
+               spread), the bound (bytes or integer operations, whichever
+               is larger) and the plain time.
 5. parity   — a full ``solve_offline`` of ``ref-50x100x100`` (seed 0) on
                ``cuda`` and on ``cpu``: paths and makespan identical, and the
                CUDA run went through the kernel.
@@ -157,9 +156,14 @@ def phase_build() -> None:
 
 
 def _per_launch_ms(fn, launches: int, reps: int = 5) -> float:
-    """Device ms per call of ``fn``: ``launches`` calls queued behind a
-    device-side sleep, so the host's enqueue time is hidden and they run
-    back to back, timed with CUDA events; the median of ``reps`` runs."""
+    """Device ms per call of ``fn``: the median of :func:`_launch_ms_runs`."""
+    return statistics.median(_launch_ms_runs(fn, launches, reps))
+
+
+def _launch_ms_runs(fn, launches: int, reps: int = 5) -> list:
+    """Device ms per call of ``fn`` in each of ``reps`` runs: ``launches``
+    calls queued behind a device-side sleep, so the host's enqueue time is
+    hidden and they run back to back, timed with CUDA events."""
     fn()  # warm the allocator's cache for this shape
     times = []
     for _ in range(reps):
@@ -172,7 +176,7 @@ def _per_launch_ms(fn, launches: int, reps: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
-    return statistics.median(times)
+    return times
 
 
 SCENARIO_MASKS = {"warehouse": scenarios.FLAGSHIP, "1k-512": scenarios.MEDIUM,
@@ -260,10 +264,10 @@ FUSED_CASES = (
     # (mode, G, H, W, mask, max_rounds, timed, forced layout): the in-step
     # replan chunk and the prime chunk of each path, on its own grid, then
     # ragged and adversarial calls made directly, then the in-step chunks
-    # at every cluster size and the 256^2 prime at other fields per
-    # cluster (timed, to compare layouts; no plain time).  Every case puts
-    # goal 0 in the top-left corner, goal 1 on an obstacle (where the grid
-    # has one) and the last goal in the bottom-right corner.
+    # at every cluster size (timed, to compare layouts; no plain time).
+    # Every case puts goal 0 in the top-left corner, goal 1 on an obstacle
+    # (where the grid has one) and the last goal in the bottom-right
+    # corner.
     ("multi", 4, 256, 256, "congested", 128, True, {}),
     ("multi", 64, 256, 256, "congested", 128, True, {}),
     ("single", 4, 1024, 1024, "warehouse", 128, True, {}),
@@ -289,15 +293,8 @@ FUSED_CASES = (
       for k in (1, 2, 4, 8, 16)),
     *(("multi", 4, 256, 256, "congested", 128, True, {"cluster": k})
       for k in (1, 2, 4, 8, 16)),
-    *(("multi", 64, 256, 256, "congested", 128, True, {"fields": f})
-      for f in (2, 4, 8)),
 )
 PLAIN_FUSED_TIMED = 3
-# PR 2's times per launch of the kernel this PR redesigned (one block per
-# field or per 8 fields; PERF.md, H100 80GB HBM3 at 700 W), by mode and shape
-PREVIOUS_MS = {"multi": {(4, 256, 256): 1.417, (64, 256, 256): 1.523},
-               "single": {(4, 1024, 1024): 2.898, (64, 1024, 1024): 3.377,
-                          (4, 512, 512): 6.955, (128, 512, 512): 10.27}}
 # The in-step replan chunk of each kernel's path: the shape whose times the
 # kernels line reports (every timed shape is in its "timed" list).
 STEP_SHAPES = {"sweep_scan": [4, 1024, 1024], "multi": [4, 256, 256],
@@ -338,7 +335,7 @@ def phase_fused(dev: torch.device, card: str) -> list:
         free_np = _mask(kind, h, w, rng)
         free = torch.from_numpy(free_np).to(dev)
         goals = torch.from_numpy(_fused_goals(free_np, g, rng)).to(dev)
-        layout = field_fused.launch_layout(dev, g, h, w, mode, **forced)
+        layout = field_fused.launch_layout(dev, g, h, w, **forced)
         got, rounds = field_fused.fused_kernel(free, goals, max_rounds, mode,
                                                **forced)
         key = (g, h, w, kind, max_rounds)
@@ -356,16 +353,16 @@ def phase_fused(dev: torch.device, card: str) -> list:
                "field_rounds_max": int(rounds.max())}
         if timed:
             row.update(_fused_bound(g, h, w, rounds))
-            row["ms"] = _per_launch_ms(
+            row["ms_runs"] = _launch_ms_runs(
                 lambda: field_fused.fused_kernel(free, goals, max_rounds,
                                                  mode, **forced),
                 TIMED_LAUNCHES)
+            row["ms"] = statistics.median(row["ms_runs"])
             if not forced:
                 row["plain_ms"] = _per_launch_ms(
                     lambda: field_fused.fields_plain(free, goals,
                                                      max_rounds),
                     PLAIN_FUSED_TIMED, reps=3)
-            row["previous_ms"] = PREVIOUS_MS[mode].get((g, h, w))
             row["card"] = card
         emit("fused", **row)
         check(equal, f"field_fused {mode} != plain at {row}")
@@ -612,10 +609,9 @@ def _kernel_entry(name: str, replaces: str, tpu_kernel: str, launches: int,
     at = [r for r in rows if r["shape"] == step_shape and "ms" in r
           and not r.get("forced")]
     mean = lambda key: sum(r[key] for r in at) / len(at)  # noqa: E731
-    timed_keys = ("shape", "forced", "fields", "cluster", "blocks", "ms",
-                  "previous_ms", "plain_ms", "bound_ms", "bound_by",
-                  "bytes_ms", "ops_ms", "field_rounds_mean", "axis",
-                  "reverse")
+    timed_keys = ("shape", "forced", "cluster", "blocks", "ms", "plain_ms",
+                  "bound_ms", "bound_by", "bytes_ms", "ops_ms",
+                  "field_rounds_mean", "axis", "reverse")
     return {
         "name": name, "route": "cuda", "source": (
             "p2p_distributed_tswap_tpu_torch/csrc/" +
@@ -664,16 +660,13 @@ def main() -> int:
             "field_fused_multi",
             "p2p_distributed_tswap_tpu/ops/field_fused.py:357",
             "field_fused._multi_kernel", congested["fused_multi_launches"],
-            multi_rows, STEP_SHAPES["multi"], card,
-            design="cluster-split, PR 3",
-            previous_ms=PREVIOUS_MS["multi"][tuple(STEP_SHAPES["multi"])]),
+            multi_rows, STEP_SHAPES["multi"], card, design="cluster-split"),
         _kernel_entry(
             "field_fused_single",
             "p2p_distributed_tswap_tpu/ops/field_fused.py:166",
             "field_fused._kernel", single["main_path_counts"]["single"],
             single_rows, STEP_SHAPES["single"], card,
-            design="cluster-split, PR 3",
-            previous_ms=PREVIOUS_MS["single"][tuple(STEP_SHAPES["single"])]),
+            design="cluster-split"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,18 +4,16 @@
 // blocks of a thread-block cluster.
 //
 // Replaces the two Pallas TPU kernels of the JAX package's fused field
-// engine; both are this one kernel, launched with another number of fields
-// per cluster (F):
+// engine; both are this one kernel, one field per cluster:
 //   p2p_distributed_tswap_tpu/ops/field_fused.py:166  _kernel
-//     (one field per program, MAPD_FUSED=single): F = 1;
+//     (one field per program, MAPD_FUSED=single);
 //   p2p_distributed_tswap_tpu/ops/field_fused.py:357  _multi_kernel
-//     (eight fields per program, MAPD_FUSED=1 or multi): F = 1..8, chosen by
-//     the wrapper; the last cluster holds the ragged rest and no goal is
-//     padded (the Pallas kernel's 8 fields were its sublane layout).
+//     (eight fields per program, MAPD_FUSED=1 or multi).  The Pallas
+//     kernel's eight fields were its sublane layout; here no goal is padded.
 //
-// What a cluster computes, for each field f it owns (goal g_f, one (H, W)
-// mask shared by every field, INF = 2^30):
-//   1. seed: d = 0 at cell g_f if that cell is free, INF everywhere else;
+// What a cluster computes for its field (goal g, one (H, W) mask shared by
+// every field, INF = 2^30):
+//   1. seed: d = 0 at cell g if that cell is free, INF everywhere else;
 //   2. rounds of four passes -- along W forward, along W reverse, along H
 //      forward, along H reverse -- each the recurrence of csrc/sweep_scan.cu
 //          run = INF; run = min(run + 1, d[i]); run = INF if blocked[i];
@@ -31,8 +29,8 @@
 // Bit-identical to the plain version (ops/field_fused.py fields_plain).
 //
 // The split.  A cluster of K blocks (1..16, chosen by the wrapper so that
-// the clusters of a launch are resident together and fill the card) owns F
-// fields; block k owns rows [k H / K, (k+1) H / K) of each, a band.
+// the clusters of a launch are resident together and fill the card) owns
+// one field; block k owns rows [k H / K, (k+1) H / K) of it, a band.
 //   along W: rows are independent, so a pass needs only the block barrier:
 //     one warp per row, 32-cell chunks, a ballot for the last obstacle at or
 //     before each lane, a five-step shuffle segmented minimum of d[k] - k,
@@ -42,18 +40,18 @@
 //     maps an incoming run c to min(tail, c + band_len); a band with one
 //     emits its own tail whatever comes in; a cell above the band's first
 //     obstacle (in scan order) takes min(local, c + i + 1).  Phase 1: one
-//     thread per (field, column) scans its band from run = INF, writes the
-//     local values and publishes (tail, obstacle bit) in shared memory.
-//     Cluster barrier.  Phase 2: the thread reads the earlier bands'
-//     summaries (later ones, for the reverse pass) through distributed
-//     shared memory, composes its carry and lowers only the cells above the
-//     band's first obstacle, stopping where the carry stops winning (from
-//     there on it never wins again).  The chain a thread walks is H / K rows
-//     long, not H.
-//   convergence: each pass ORs a bit per changed field; after the round
-//     every block publishes its bits, a cluster barrier, and every thread
-//     ORs the K blocks' bits through distributed shared memory, so the
-//     whole cluster leaves the loop on the same round.  No host sync.
+//     thread per column scans its band from run = INF, writes the local
+//     values and publishes (tail, obstacle bit) in shared memory.  Cluster
+//     barrier.  Phase 2: the thread reads the earlier bands' summaries
+//     (later ones, for the reverse pass) through distributed shared memory,
+//     composes its carry and lowers only the cells above the band's first
+//     obstacle, stopping where the carry stops winning (from there on it
+//     never wins again).  The chain a thread walks is H / K rows long, not
+//     H.
+//   convergence: after the round every block publishes whether it changed a
+//     cell, a cluster barrier, and every thread ORs the K blocks' flags
+//     through distributed shared memory, so the whole cluster leaves the
+//     loop on the same round.  No host sync.
 //
 // Layout.  Codes are written as (G, H, W) uint8 directly.  The distances
 // are (G, H, W) int32 in device memory, allocated by the caller: a 1024^2
@@ -61,11 +59,11 @@
 // shared memory a block may use, so every field lives in device memory and
 // the 50 MB L2 (16 MB at the in-step chunk of 4).  Shared memory holds the
 // band's mask as bits (one 32-bit word per 32 cells of a row) and the two
-// H-pass summaries (forward and reverse, one word per column per field).  A
-// small first kernel packs the bits from the (H, W) uint8 mask into a
-// device buffer, from which each block copies its band.  The codes of a
-// band's edge rows read the neighbour band's row after the last cluster
-// barrier (and a fence), bypassing L1.
+// H-pass summaries (forward and reverse, one word per column).  A small
+// first kernel packs the bits from the (H, W) uint8 mask into a device
+// buffer, from which each block copies its band.  The codes of a band's
+// edge rows read the neighbour band's row after the last cluster barrier
+// (and a fence), bypassing L1.
 //
 // Bound on an H100.  What the function must move is the mask read once and
 // the codes written once, (H W + G H W) bytes; its integer work, about 12
@@ -85,7 +83,9 @@
 // Interface: plain C, loaded with ctypes.  The caller passes device pointers
 // and the CUDA stream; the launches are asynchronous and allocate nothing.
 // Returns cudaGetLastError() after the launches (0 = success); a launch the
-// runtime refuses (a cluster that cannot be placed) returns its error.
+// runtime refuses (a cluster that cannot be placed) returns its error.  The
+// limits of a layout (cluster size, shared memory) live here only:
+// field_fused_max_clusters answers 0 for a layout the kernel does not take.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -101,7 +101,6 @@ constexpr int kStay = 4;
 constexpr int kThreads = 1024;
 constexpr int kUnroll = 8;
 constexpr int kChunks = 8;
-constexpr int kMaxFields = 8;
 constexpr int kMaxCluster = 16;
 constexpr unsigned kFull = 0xffffffffu;
 // Summary word of a band's column: the run at the band's last row in scan
@@ -115,9 +114,17 @@ __host__ __device__ inline int band_start(int band, int H, int K) {
 }
 
 // Dynamic shared memory of one block: the widest band's mask bits and the
-// forward and reverse H summaries of F fields.
-long long smem_bytes(long long K, long long F, long long H, long long W) {
-  return 4 * (((H + K - 1) / K) * ((W + 31) / 32) + 2 * F * W);
+// forward and reverse H summaries.
+long long smem_bytes(long long K, long long H, long long W) {
+  return 4 * (((H + K - 1) / K) * ((W + 31) / 32) + 2 * W);
+}
+
+// Whether the kernel takes an (H, W) field split over K blocks: at least
+// one row a band, cell indices in an int, and the block's shared memory.
+bool layout_fits(long long K, long long H, long long W) {
+  return K >= 1 && K <= kMaxCluster && H >= K && W >= 1 &&
+         H * W <= 0x7fffffffLL - kThreads &&
+         smem_bytes(K, H, W) <= kMaxSmemBytes;
 }
 
 __device__ __forceinline__ bool is_blocked(const uint32_t* bits, int wp,
@@ -142,29 +149,23 @@ __global__ void pack_blocked_bits(const uint8_t* __restrict__ blocked,
   if (lane == 0) bits[word] = v;
 }
 
-// What one block of a cluster owns: fields [0, nf) of d (each plane
-// H * W), rows [y0, y0 + bh) of each, their mask bits in shared memory.
+// What one block of a cluster owns: rows [y0, y0 + bh) of its field d
+// (H * W), their mask bits in shared memory.
 struct Band {
   int* d;
   const uint32_t* bits;
-  long long plane;
-  int nf, y0, bh, H, W, wp;
+  int y0, bh, H, W, wp;
 };
 
-// One pass along W over the band's rows of the fields still active.
-// Returns a bit per field of which this thread changed a cell.
-__device__ unsigned pass_along_w(const Band& b, unsigned active,
-                                 bool reverse) {
+// One pass along W over the band's rows.  Returns whether this thread
+// changed a cell.
+__device__ bool pass_along_w(const Band& b, bool reverse) {
   const int lane = threadIdx.x & 31;
   const unsigned upto_lane = kFull >> (31 - lane);  // lanes 0..lane
   const int W = b.W;
-  unsigned changed = 0;
-  for (int r = threadIdx.x >> 5; r < b.nf * b.bh; r += kThreads / 32) {
-    const int f = r / b.bh;
-    if (!((active >> f) & 1u)) continue;  // uniform per warp
-    const int row_in_band = r - f * b.bh;
-    int* row = b.d + f * b.plane +
-               static_cast<long long>(b.y0 + row_in_band) * W;
+  bool changed = false;
+  for (int r = threadIdx.x >> 5; r < b.bh; r += kThreads / 32) {
+    int* row = b.d + static_cast<long long>(b.y0 + r) * W;
     int carry = kInf;
     for (int base0 = 0; base0 < W; base0 += 32 * kChunks) {
       int dv[kChunks];
@@ -177,7 +178,7 @@ __device__ unsigned pass_along_w(const Band& b, unsigned active,
         // Lanes past the row's end hold a free INF cell: they sit after
         // every valid lane in scan order and never reach a valid result.
         dv[k] = valid ? row[x] : kInf;
-        bl[k] = valid && is_blocked(b.bits, b.wp, row_in_band, x);
+        bl[k] = valid && is_blocked(b.bits, b.wp, r, x);
       }
 #pragma unroll
       for (int k = 0; k < kChunks; ++k) {
@@ -203,7 +204,7 @@ __device__ unsigned pass_along_w(const Band& b, unsigned active,
         const int out = min(run, kInf);
         if (i < W && out != dv[k]) {
           row[reverse ? W - 1 - i : i] = out;
-          changed |= 1u << f;
+          changed = true;
         }
         carry = __shfl_sync(kFull, run, 31);
       }
@@ -212,23 +213,17 @@ __device__ unsigned pass_along_w(const Band& b, unsigned active,
   return changed;
 }
 
-// One pass along H over the band's columns of the fields still active, as
-// the two-phase scan across the cluster's bands; `sum` is this block's
-// summary buffer for the direction.  Every thread of the cluster must call
-// it (it holds a cluster barrier).  Returns a bit per field of which this
-// thread changed a cell.
-__device__ unsigned pass_along_h(const cg::cluster_group& cluster,
-                                 const Band& b, uint32_t* sum,
-                                 unsigned active, bool reverse) {
+// One pass along H over the band's columns, as the two-phase scan across
+// the cluster's bands; `sum` is this block's summary buffer for the
+// direction.  Every thread of the cluster must call it (it holds a cluster
+// barrier).  Returns whether this thread changed a cell.
+__device__ bool pass_along_h(const cg::cluster_group& cluster, const Band& b,
+                             uint32_t* sum, bool reverse) {
   const int W = b.W;
-  const int ncols = b.nf * W;
-  unsigned changed = 0;
+  bool changed = false;
   // Phase 1: each column of the band from run = INF; (tail, obstacle) out.
-  for (int c = threadIdx.x; c < ncols; c += kThreads) {
-    const int f = c / W;
-    if (!((active >> f) & 1u)) continue;
-    const int x = c - f * W;
-    int* col = b.d + f * b.plane + static_cast<long long>(b.y0) * W + x;
+  for (int x = threadIdx.x; x < W; x += kThreads) {
+    int* col = b.d + static_cast<long long>(b.y0) * W + x;
     const uint32_t* mcol = b.bits + (x >> 5);
     const int shift = x & 31;
     int run = kInf;
@@ -251,7 +246,7 @@ __device__ unsigned pass_along_h(const cg::cluster_group& cluster,
         obstacle |= mv[k];
         if (run != dv[k]) {
           col[static_cast<long long>(y) * W] = run;
-          changed |= 1u << f;
+          changed = true;
         }
       }
     }
@@ -264,32 +259,29 @@ __device__ unsigned pass_along_h(const cg::cluster_group& cluster,
       obstacle |= mv;
       if (run != dv) {
         col[static_cast<long long>(y) * W] = run;
-        changed |= 1u << f;
+        changed = true;
       }
     }
-    sum[c] = static_cast<uint32_t>(run) | (obstacle ? kObstacle : 0u);
+    sum[x] = static_cast<uint32_t>(run) | (obstacle ? kObstacle : 0u);
   }
   cluster.sync();
   // Phase 2: the carry into the band from the bands before it in scan
   // order, then the cells above the band's first obstacle.
   const int K = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  for (int c = threadIdx.x; c < ncols; c += kThreads) {
-    const int f = c / W;
-    if (!((active >> f) & 1u)) continue;
+  for (int x = threadIdx.x; x < W; x += kThreads) {
     int carry = kInf;
     const int n_before = reverse ? K - 1 - rank : rank;
 #pragma unroll 4
     for (int j = 0; j < n_before; ++j) {
       const int k = reverse ? K - 1 - j : j;
-      const uint32_t s = *cluster.map_shared_rank(sum + c, k);
+      const uint32_t s = *cluster.map_shared_rank(sum + x, k);
       const int tail = static_cast<int>(s & ~kObstacle);
       const int len = band_start(k + 1, b.H, K) - band_start(k, b.H, K);
       carry = (s & kObstacle) ? tail : min(tail, carry + len);
     }
     if (carry >= kInf) continue;
-    const int x = c - f * W;
-    int* col = b.d + f * b.plane + static_cast<long long>(b.y0) * W + x;
+    int* col = b.d + static_cast<long long>(b.y0) * W + x;
     const uint32_t* mcol = b.bits + (x >> 5);
     const int shift = x & 31;
     // kUnroll rows loaded ahead, as in phase 1; the walk stops at the
@@ -313,7 +305,7 @@ __device__ unsigned pass_along_h(const cg::cluster_group& cluster,
         if (open) {
           const int y = reverse ? b.bh - 1 - (i + k) : i + k;
           col[static_cast<long long>(y) * W] = cand;
-          changed |= 1u << f;
+          changed = true;
         }
       }
     }
@@ -322,7 +314,7 @@ __device__ unsigned pass_along_h(const cg::cluster_group& cluster,
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-    field_fused_kernel(const int* __restrict__ goals, int G, int F,
+    field_fused_kernel(const int* __restrict__ goals,
                        const uint32_t* __restrict__ bits_in, int* dist,
                        uint8_t* __restrict__ codes,
                        int* __restrict__ rounds_out, int H, int W, int wp,
@@ -331,8 +323,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int K = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const long long plane = static_cast<long long>(H) * W;
-  const int f0 = static_cast<int>(blockIdx.x / K) * F;
-  const int nf = min(F, G - f0);
+  const int field = static_cast<int>(blockIdx.x / K);
+  const int goal = goals[field];
   const int y0 = band_start(rank, H, K);
   const int y1 = band_start(rank + 1, H, K);
 
@@ -340,102 +332,83 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint32_t* bits = smem;  // the band's rows, bit set = blocked
   // Same offsets in every block of the cluster, for map_shared_rank.
   uint32_t* sum_fwd = bits + ((H + K - 1) / K) * wp;
-  uint32_t* sum_rev = sum_fwd + F * W;
-  __shared__ int goal_s[kMaxFields];
-  __shared__ unsigned flags[2];  // changed-field bits, by round parity
+  uint32_t* sum_rev = sum_fwd + W;
+  __shared__ unsigned flags[2];  // a cell changed, by round parity
 
   for (int i = threadIdx.x; i < (y1 - y0) * wp; i += kThreads) {
     bits[i] = bits_in[static_cast<long long>(y0) * wp + i];
   }
-  if (threadIdx.x < nf) goal_s[threadIdx.x] = goals[f0 + threadIdx.x];
   if (threadIdx.x < 2) flags[threadIdx.x] = 0;
   __syncthreads();
 
-  const Band band{dist + f0 * plane, bits, plane, nf, y0, y1 - y0, H, W, wp};
+  int* d = dist + field * plane;
+  const Band band{d, bits, y0, y1 - y0, H, W, wp};
 
   // ---- seed: 0 at the goal cell if it is free, INF elsewhere ----
-  for (int f = 0; f < nf; ++f) {
-    const int goal = goal_s[f];
-    int* df = band.d + f * plane;
-    for (int cell = y0 * W + threadIdx.x; cell < y1 * W; cell += kThreads) {
-      const int y = cell / W;
-      const bool seed =
-          cell == goal && !is_blocked(bits, wp, y - y0, cell - y * W);
-      df[cell] = seed ? 0 : kInf;
-    }
+  for (int cell = y0 * W + threadIdx.x; cell < y1 * W; cell += kThreads) {
+    const int y = cell / W;
+    const bool seed =
+        cell == goal && !is_blocked(bits, wp, y - y0, cell - y * W);
+    d[cell] = seed ? 0 : kInf;
   }
   __syncthreads();
 
-  // ---- fixpoint: rounds of four passes, per field, until none changes ----
-  unsigned active = (1u << nf) - 1;
+  // ---- fixpoint: rounds of four passes until none changes a cell ----
+  bool changed = true;
   int rounds = 0;
-  while (active != 0 && rounds < max_rounds) {
+  while (changed && rounds < max_rounds) {
     unsigned* flag = &flags[rounds & 1];
     // The other parity's readers finished before this round's barriers.
     if (threadIdx.x == 0) *flag = 0;
-    unsigned c = pass_along_w(band, active, false);
+    bool c = pass_along_w(band, false);
     __syncthreads();
-    c |= pass_along_w(band, active, true);
+    c |= pass_along_w(band, true);
     __syncthreads();
-    c |= pass_along_h(cluster, band, sum_fwd, active, false);
+    c |= pass_along_h(cluster, band, sum_fwd, false);
     __syncthreads();
-    c |= pass_along_h(cluster, band, sum_rev, active, true);
-    c = __reduce_or_sync(kFull, c);
-    if ((threadIdx.x & 31) == 0 && c) atomicOr(flag, c);
+    c |= pass_along_h(cluster, band, sum_rev, true);
+    if (__any_sync(kFull, c) && (threadIdx.x & 31) == 0) *flag = 1;
     cluster.sync();
-    unsigned still = 0;
+    changed = false;
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) still |= *cluster.map_shared_rank(flag, k);
+    for (int k = 0; k < K; ++k) {
+      changed |= *cluster.map_shared_rank(flag, k) != 0;
+    }
     ++rounds;
-    if (rank == 0 && threadIdx.x == 0) {  // the fields that converged
-      const unsigned done = active & ~still;
-      for (int f = 0; f < nf; ++f) {
-        if ((done >> f) & 1u) rounds_out[f0 + f] = rounds;
-      }
-    }
-    active &= still;
   }
-  if (rank == 0 && threadIdx.x == 0) {  // the fields max_rounds stopped
-    for (int f = 0; f < nf; ++f) {
-      if ((active >> f) & 1u) rounds_out[f0 + f] = rounds;
-    }
-  }
+  if (rank == 0 && threadIdx.x == 0) rounds_out[field] = rounds;
   // Every band's distances visible to the cluster; after this barrier no
   // block reads another's shared memory, so each may run on to its exit.
   __threadfence();
   cluster.sync();
 
   // ---- next-hop codes of the band ----
-  for (int f = 0; f < nf; ++f) {
-    const int* df = band.d + f * plane;
-    uint8_t* cf = codes + (f0 + f) * plane;
+  uint8_t* cf = codes + field * plane;
 #pragma unroll 4  // the cells are independent: keep their loads in flight
-    for (int cell = y0 * W + threadIdx.x; cell < y1 * W; cell += kThreads) {
-      const int y = cell / W;
-      const int x = cell - y * W;
-      const int cur = df[cell];
-      // rows past the band's edges were written by the neighbour blocks
-      const int down = y + 1 >= H ? kInf
-                       : y + 1 < y1 ? df[cell + W]
-                                    : __ldcg(df + cell + W);
-      const int up = y == 0 ? kInf : y > y0 ? df[cell - W]
-                                            : __ldcg(df + cell - W);
-      // DIR_DXDY order: (0,1) down, (1,0) right, (0,-1) up, (-1,0) left
-      const int nv[4] = {down, x + 1 < W ? df[cell + 1] : kInf, up,
-                         x > 0 ? df[cell - 1] : kInf};
-      int best = kStay;
-      int best_val = kInf;
+  for (int cell = y0 * W + threadIdx.x; cell < y1 * W; cell += kThreads) {
+    const int y = cell / W;
+    const int x = cell - y * W;
+    const int cur = d[cell];
+    // rows past the band's edges were written by the neighbour blocks
+    const int down = y + 1 >= H ? kInf
+                     : y + 1 < y1 ? d[cell + W]
+                                  : __ldcg(d + cell + W);
+    const int up = y == 0 ? kInf : y > y0 ? d[cell - W] : __ldcg(d + cell - W);
+    // DIR_DXDY order: (0,1) down, (1,0) right, (0,-1) up, (-1,0) left
+    const int nv[4] = {down, x + 1 < W ? d[cell + 1] : kInf, up,
+                       x > 0 ? d[cell - 1] : kInf};
+    int best = kStay;
+    int best_val = kInf;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (nv[k] < best_val) {
-          best = k;
-          best_val = nv[k];
-        }
+    for (int k = 0; k < 4; ++k) {
+      if (nv[k] < best_val) {
+        best = k;
+        best_val = nv[k];
       }
-      const bool stay = cur == 0 || cur >= kInf || best_val >= kInf ||
-                        best_val >= cur || is_blocked(bits, wp, y - y0, x);
-      cf[cell] = static_cast<uint8_t>(stay ? kStay : best);
     }
+    const bool stay = cur == 0 || cur >= kInf || best_val >= kInf ||
+                      best_val >= cur || is_blocked(bits, wp, y - y0, x);
+    cf[cell] = static_cast<uint8_t>(stay ? kStay : best);
   }
 }
 
@@ -469,28 +442,21 @@ cudaLaunchConfig_t launch_config(long long blocks, int K, long long smem,
   return cfg;
 }
 
-bool bad_layout(long long K, long long F, long long H, long long W) {
-  return F < 1 || F > kMaxFields || K < 1 || K > kMaxCluster || H < K ||
-         W < 1 || H * W > 0x7fffffffLL ||
-         smem_bytes(K, F, H, W) > kMaxSmemBytes;
-}
-
 }  // namespace
 
-// How many clusters of `cluster` blocks, each owning `fields_per_cluster`
-// fields of an (H, W) grid, the card can hold at once (0: none); into *out.
-extern "C" int field_fused_max_clusters(int cluster, int fields_per_cluster,
-                                        long long H, long long W, int* out) {
-  if (bad_layout(cluster, fields_per_cluster, H, W)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// How many clusters of `cluster` blocks, each owning one field of an
+// (H, W) grid, the card can hold at once; into *out.  0 when the kernel
+// does not take that layout (past 16 blocks, fewer rows than blocks, or
+// more shared memory than a block may use) or the card places none.
+extern "C" int field_fused_max_clusters(int cluster, long long H, long long W,
+                                        int* out) {
+  *out = 0;
+  if (!layout_fits(cluster, H, W)) return 0;
   cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(cluster, cluster,
-                    smem_bytes(cluster, fields_per_cluster, H, W), nullptr,
-                    &attr);
+  const cudaLaunchConfig_t cfg = launch_config(
+      cluster, cluster, smem_bytes(cluster, H, W), nullptr, &attr);
   err = cudaOccupancyMaxActiveClusters(
       out, reinterpret_cast<const void*>(field_fused_kernel), &cfg);
   return static_cast<int>(err);
@@ -499,15 +465,14 @@ extern "C" int field_fused_max_clusters(int cluster, int fields_per_cluster,
 // goals (G,) int32; blocked (H, W) uint8, nonzero = obstacle; bits
 // (H, ceil(W/32)) 32-bit scratch; dist (G, H, W) int32 scratch; codes
 // (G, H, W) uint8 out; rounds (G,) int32 out: the rounds each field ran.
-// ceil(G / fields_per_cluster) clusters of `cluster` blocks; cluster <= H.
+// G clusters of `cluster` blocks, one field each.
 extern "C" int field_fused(const void* goals, long long G, const void* blocked,
                            void* bits, void* dist, void* codes, void* rounds,
-                           long long H, long long W, int fields_per_cluster,
-                           int cluster, int max_rounds, void* stream) {
-  const long long F = fields_per_cluster;
-  const long long blocks = (G + F - 1) / F * cluster;
-  if (bad_layout(cluster, F, H, W) || G < 1 || G > 0x7fffffffLL ||
-      blocks > 0x7fffffffLL || max_rounds < 0) {
+                           long long H, long long W, int cluster,
+                           int max_rounds, void* stream) {
+  const long long blocks = G * cluster;
+  if (!layout_fits(cluster, H, W) || G < 1 || blocks > 0x7fffffffLL ||
+      max_rounds < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = configure();
@@ -526,10 +491,9 @@ extern "C" int field_fused(const void* goals, long long G, const void* blocked,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      launch_config(blocks, cluster, smem_bytes(cluster, F, H, W), s, &attr);
+      launch_config(blocks, cluster, smem_bytes(cluster, H, W), s, &attr);
   err = cudaLaunchKernelEx(&cfg, field_fused_kernel,
-                           static_cast<const int*>(goals), static_cast<int>(G),
-                           fields_per_cluster,
+                           static_cast<const int*>(goals),
                            static_cast<const uint32_t*>(bp),
                            static_cast<int*>(dist),
                            static_cast<uint8_t*>(codes),

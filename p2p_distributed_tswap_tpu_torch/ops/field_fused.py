@@ -14,10 +14,9 @@ tensors are on a CUDA device", so on the CPU the fused path is never taken.
   the hand-written kernel in ``csrc/field_fused.cu`` (built with the port's
   other kernels by ``ops.cuda_build``) for a CUDA tensor, and run the plain
   version for a CPU tensor.  Nothing falls back.  ``launches`` counts the
-  launches of each instance.  Both instances split each field over the
-  blocks of a thread-block cluster (:func:`launch_layout`); the single
-  instance owns one field per cluster, the multi instance up to eight when
-  there are more fields than the card holds clusters.
+  launches of each instance.  Both instances are one kernel: each field is
+  split over the blocks of a thread-block cluster (:func:`launch_layout`);
+  they differ only in the shape gates that route a grid to them.
 - :func:`fields_plain` is the plain version: the seed, the sweep fixpoint by
   ``sweep_kernel.sweep_plain`` (never ``sweep_scan``, even on the card, so the
   kernel is held against arithmetic independent of both kernels) and
@@ -39,19 +38,19 @@ from p2p_distributed_tswap_tpu_torch.ops import (
     sweep_kernel,
 )
 
-SUB = 8        # most fields per cluster of the multi instance; TPU tile rows
+SUB = 8        # TPU tile rows, kept in the shape gates
 LANES = 128
 HALO = SUB
 # The JAX package's VMEM budgets, kept as shape gates (see fused_eligible).
 MAX_SCRATCH_BYTES = 6 << 20
 MULTI_MAX_BYTES = 12 << 20
-# Dynamic shared memory a block of the kernel may use (see smem_bytes).
-MAX_SMEM_BYTES = 232448 - 1024
 # Blocks per cluster the wrapper tries, most first (16 is past the portable
 # 8: the kernel allows it, and the card's occupancy answer decides).
 CLUSTER_SIZES = (16, 8, 4, 2)
-_MODES = ("single", "multi")
-
+# Fewest rows a band may have: one per warp of the kernel's 1024-thread
+# blocks, whose along-W passes give each warp a row (fewer rows leave warps
+# idle while each block still pays the round's cluster barriers).
+MIN_BAND_ROWS = 32
 # Launches of each kernel instance since the last reset (callers reset them).
 launches = {"single": 0, "multi": 0}
 
@@ -102,54 +101,40 @@ def _fn():
         "field_fused",
         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p])
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
-def smem_bytes(cluster: int, fields: int, h: int, w: int) -> int:
-    """Dynamic shared memory of one block (as ``csrc/field_fused.cu``
-    computes it): the widest band's mask bits and the forward and reverse
-    along-H summaries of ``fields`` fields."""
-    return 4 * (-(-h // cluster) * -(-w // 32) + 2 * fields * w)
-
-
-def choose_cluster(clusters: int, h: int, max_active) -> int:
-    """Blocks per cluster: the most of 16, 8, 4, 2 (at most ``h``, one row
-    per band at least) for which ``max_active(k)``, the clusters of k blocks
-    the card holds at once, covers all ``clusters``; else 1."""
+def choose_cluster(g: int, h: int, max_active) -> int:
+    """Blocks per cluster for ``g`` fields of ``h`` rows: the most of 16, 8,
+    4, 2 that leaves every band ``MIN_BAND_ROWS`` rows and for which
+    ``max_active(k)``, the clusters of k blocks the card holds at once,
+    covers all ``g``; else 1."""
     for k in CLUSTER_SIZES:
-        if k <= h and clusters <= max_active(k):
+        if h // k >= MIN_BAND_ROWS and g <= max_active(k):
             return k
     return 1
-
-
-def choose_fields(g: int, resident: int) -> int:
-    """Fields per cluster of the multi instance: one, unless the ``g``
-    fields outnumber the ``resident`` one-block clusters the card holds at
-    once; then as many as spread them over those, at most eight."""
-    return min(SUB, max(1, -(-g // resident)))
 
 
 _max_clusters: dict = {}
 
 
-def max_active_clusters(device, cluster: int, fields: int, h: int,
-                        w: int) -> int:
-    """Clusters of ``cluster`` blocks, each owning ``fields`` fields of an
-    (h, w) grid, that the card of ``device`` holds at once (the CUDA
-    runtime's occupancy answer; cached per process)."""
+def max_active_clusters(device, cluster: int, h: int, w: int) -> int:
+    """Clusters of ``cluster`` blocks, each owning one field of an (h, w)
+    grid, that the card of ``device`` holds at once: the CUDA runtime's
+    occupancy answer, or 0 where the kernel does not take that layout
+    (``csrc/field_fused.cu`` holds the limits).  Cached per process."""
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
-    key = (index, cluster, fields, h, w)
+    key = (index, cluster, h, w)
     if key not in _max_clusters:
         fn = cuda_build.function(
             "field_fused_max_clusters",
-            [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
              ctypes.POINTER(ctypes.c_int)])
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
-            rc = fn(cluster, fields, h, w, ctypes.byref(out))
+            rc = fn(cluster, h, w, ctypes.byref(out))
         if rc != 0:
             raise RuntimeError(f"field_fused: occupancy query for clusters of "
                                f"{cluster} failed with CUDA error {rc}")
@@ -157,59 +142,34 @@ def max_active_clusters(device, cluster: int, fields: int, h: int,
     return _max_clusters[key]
 
 
-def launch_layout(device, g: int, h: int, w: int, mode: str,
-                  cluster=None, fields=None) -> dict:
-    """How :func:`fused_kernel` splits G fields of an (h, w) grid: fields
-    per cluster, blocks per cluster, clusters and blocks launched.
-    ``cluster`` and ``fields`` force the choice (``fields`` only for the
-    multi instance); the solver never passes them."""
-    if mode not in _MODES:
-        raise ValueError(f"field_fused: mode must be 'single' or 'multi', "
-                         f"got {mode!r}")
-    def fits(f):  # the whole grid in one block: every cluster size fits
-        return smem_bytes(1, f, h, w) <= MAX_SMEM_BYTES and h * w < 1 << 31
+def launch_layout(device, g: int, h: int, w: int, cluster=None) -> dict:
+    """How :func:`fused_kernel` splits G fields of an (h, w) grid: one
+    cluster of ``cluster`` blocks per field.  ``cluster`` forces the choice;
+    the solver never passes it."""
+    def max_active(k):
+        return max_active_clusters(device, k, h, w)
 
-    if not fits(1):
-        raise ValueError(f"field_fused: a {h}x{w} grid does not fit one block "
-                         "(its bit mask and summaries must fit shared memory)")
-    if fields is None:
-        fields = 1 if mode == "single" else choose_fields(
-            g, max_active_clusters(device, 1, 1, h, w))
-        while not fits(fields):
-            fields -= 1
-    elif mode == "single" and fields != 1:
-        raise ValueError("field_fused: the single instance owns one field "
-                         f"per cluster, got fields={fields!r}")
-    if not (isinstance(fields, int) and 1 <= fields <= SUB and fits(fields)):
-        raise ValueError(f"field_fused: fields must be 1..{SUB} and fit "
-                         f"shared memory on a {h}x{w} grid, got {fields!r}")
-    clusters = -(-g // fields)
     if cluster is None:
-        cluster = choose_cluster(
-            clusters, h,
-            lambda k: max_active_clusters(device, k, fields, h, w))
-    if not (isinstance(cluster, int) and 1 <= cluster <= CLUSTER_SIZES[0]
-            and cluster <= h):
-        raise ValueError(f"field_fused: cluster must be 1..16 and at most "
-                         f"H = {h}, got {cluster!r}")
-    return {"fields": fields, "cluster": cluster, "clusters": clusters,
-            "blocks": clusters * cluster}
+        cluster = choose_cluster(g, h, max_active)
+    if not isinstance(cluster, int) or cluster < 1 or max_active(cluster) < 1:
+        raise ValueError(f"field_fused: the kernel does not take a {h}x{w} "
+                         f"grid split over a cluster of {cluster!r} blocks "
+                         "(at most 16, at most H, and the band's mask bits "
+                         "and summaries within a block's shared memory)")
+    return {"cluster": cluster, "blocks": g * cluster}
 
 
 def fused_kernel(free: torch.Tensor, goals_idx: torch.Tensor,
-                 max_rounds: int, mode: str, cluster=None, fields=None):
+                 max_rounds: int, mode: str, cluster=None):
     """Launch the CUDA kernel for one instance.
 
     Args:
       free: (H, W) bool, contiguous, on a CUDA device; True = traversable.
       goals_idx: (G,) int32 flat goal cells, G >= 1, same device.
       max_rounds: cap on fast-sweeping rounds, >= 0.
-      mode: 'single' (one field per cluster) or 'multi' (up to eight, no
-        padding).
+      mode: 'single' or 'multi', the instance whose launches are counted.
       cluster: blocks per cluster (1..16, at most H); None lets
         :func:`launch_layout` choose.  A launch the card refuses raises.
-      fields: fields per cluster of the multi instance (1..8); None lets
-        :func:`launch_layout` choose.
 
     Returns ``(codes, rounds)``: (G, H, W) uint8 codes and (G,) int32, the
     rounds each field ran.  Raises on anything else, CPU tensors included.
@@ -231,7 +191,10 @@ def fused_kernel(free: torch.Tensor, goals_idx: torch.Tensor,
     h, w = free.shape
     g = goals_idx.shape[0]
     dev = free.device
-    layout = launch_layout(dev, g, h, w, mode, cluster, fields)
+    if mode not in launches:
+        raise ValueError(f"field_fused: mode must be 'single' or 'multi', "
+                         f"got {mode!r}")
+    layout = launch_layout(dev, g, h, w, cluster)
     blocked = (~free).to(torch.uint8)
     bits = torch.empty((h, -(-w // 32)), dtype=torch.int32, device=dev)
     dist = torch.empty((g, h, w), dtype=torch.int32, device=dev)
@@ -242,7 +205,7 @@ def fused_kernel(free: torch.Tensor, goals_idx: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(goals_idx.data_ptr(), g, blocked.data_ptr(), bits.data_ptr(),
                 dist.data_ptr(), codes.data_ptr(), rounds.data_ptr(), h, w,
-                layout["fields"], layout["cluster"], max_rounds, stream)
+                layout["cluster"], max_rounds, stream)
     if rc != 0:
         raise RuntimeError(f"field_fused: launch of {layout} failed with CUDA "
                            f"error {rc}")
@@ -260,15 +223,15 @@ def _direction_fields(free, goals_idx, max_rounds, mode):
 
 def single_direction_fields(free: torch.Tensor, goals_idx: torch.Tensor,
                             max_rounds: int = 128) -> torch.Tensor:
-    """(G, H, W) uint8 next-hop codes, one field per cluster (the
-    counterpart of the JAX package's ``_kernel``)."""
+    """(G, H, W) uint8 next-hop codes (the counterpart of the JAX
+    package's ``_kernel``)."""
     return _direction_fields(free, goals_idx, max_rounds, "single")
 
 
 def multi_direction_fields(free: torch.Tensor, goals_idx: torch.Tensor,
                            max_rounds: int = 128) -> torch.Tensor:
-    """(G, H, W) uint8 next-hop codes, up to eight fields per cluster (the
-    counterpart of the JAX package's ``_multi_kernel``)."""
+    """(G, H, W) uint8 next-hop codes (the counterpart of the JAX
+    package's ``_multi_kernel``)."""
     return _direction_fields(free, goals_idx, max_rounds, "multi")
 
 

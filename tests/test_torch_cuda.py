@@ -162,17 +162,13 @@ def test_fused_wrapper_checks_inputs(cuda):
         field_fused.fused_kernel(free, goals[:0], 8, "multi")
     with pytest.raises(ValueError):
         field_fused.fused_kernel(free, goals, 8, "double")
-    big = torch.ones((2048, 1024), dtype=torch.bool, device=cuda)
+    wide = torch.ones((16, 32768), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        field_fused.fused_kernel(big, goals, 8, "single")
+        field_fused.fused_kernel(wide, goals, 8, "single")
     with pytest.raises(ValueError, match="cluster"):
         field_fused.fused_kernel(free, goals, 8, "single", cluster=9)
     with pytest.raises(ValueError, match="cluster"):
         field_fused.fused_kernel(free, goals, 8, "single", cluster=17)
-    with pytest.raises(ValueError, match="fields"):
-        field_fused.fused_kernel(free, goals, 8, "single", fields=2)
-    with pytest.raises(ValueError, match="fields"):
-        field_fused.fused_kernel(free, goals, 8, "multi", fields=9)
 
 
 def _check_fused(cuda, free, goals, max_rounds, mode, **layout):
@@ -190,7 +186,7 @@ def _check_fused(cuda, free, goals, max_rounds, mode, **layout):
 @pytest.mark.parametrize("mode", ["single", "multi"])
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
 def test_fused_kernel_at_every_cluster_size(cuda, mode, cluster):
-    if field_fused.max_active_clusters(cuda, cluster, 1, 96, 256) == 0:
+    if field_fused.max_active_clusters(cuda, cluster, 96, 256) == 0:
         pytest.skip(f"the card places no cluster of {cluster} blocks")
     free, goals = _fused_inputs(cluster, 5, 96, 256, 0.3)
     _check_fused(cuda, free, goals, 128, mode, cluster=cluster)
@@ -200,9 +196,8 @@ def test_fused_kernel_at_every_cluster_size(cuda, mode, cluster):
 @pytest.mark.parametrize("g", [1, 3, 4, 5, 11, 64])
 def test_fused_kernel_batch_sizes(cuda, mode, g):
     free, goals = _fused_inputs(g, g, 64, 256, 0.25)
-    layout = field_fused.launch_layout(cuda, g, 64, 256, mode)
-    assert layout["blocks"] == layout["clusters"] * layout["cluster"]
-    assert layout["clusters"] == -(-g // layout["fields"])  # no padding
+    layout = field_fused.launch_layout(cuda, g, 64, 256)
+    assert layout["blocks"] == g * layout["cluster"]  # no padded field
     _check_fused(cuda, free, goals, 128, mode)
 
 
@@ -234,22 +229,20 @@ def test_fused_round_cap_binds_on_a_maze(cuda, mode, cluster):
 
 
 def test_fused_rounds_agree_between_instances(cuda):
-    """Per-field rounds: one field per cluster (single), and several per
-    cluster (multi, fields 1, 3 and 8: the last cluster ragged)."""
+    """Per-field rounds (G,) are the same from both instances, whatever the
+    cluster size."""
     free, goals = _fused_inputs(6, 20, 64, 256, 0.3)
     want = _check_fused(cuda, free, goals, 128, "single")
-    for fields in (1, 3, 8):
-        got = _check_fused(cuda, free, goals, 128, "multi", fields=fields,
-                           cluster=4)
+    for cluster in (1, 2, 4):
+        got = _check_fused(cuda, free, goals, 128, "multi", cluster=cluster)
         assert torch.equal(got, want)
 
 
 def test_fused_layout_at_the_in_step_chunk(cuda):
     """At the in-step chunk of 4 fields each field is split over a cluster
-    of more than one block, and the multi instance pads nothing."""
-    for mode, h in (("single", 1024), ("multi", 256)):
-        layout = field_fused.launch_layout(cuda, 4, h, h, mode)
-        assert layout["fields"] == 1 and layout["clusters"] == 4
+    of more than one block, one cluster per field."""
+    for h in (1024, 256):
+        layout = field_fused.launch_layout(cuda, 4, h, h)
         assert layout["cluster"] > 1
         assert layout["blocks"] == 4 * layout["cluster"]
 

@@ -308,35 +308,53 @@ def test_band_split_kernel_matches_the_pallas_kernel(interpret_mode, bands,
     np.testing.assert_array_equal(want, got.numpy())
 
 
-@pytest.mark.parametrize("clusters,h,want", [
-    (4, 1024, 16),   # the in-step chunk: 4 clusters of 16 blocks
+# An H100's occupancy answer for 1024-thread blocks: 132 SMs, clusters of 16
+# only one per GPC.
+H100_CLUSTERS = {16: 8, 8: 16, 4: 32, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize("g,h,want", [
+    (4, 1024, 16),   # the flagship's in-step chunk: 4 clusters of 16 blocks
+    (1, 1024, 16),
+    (4, 512, 16),    # bands of 32 rows
     (9, 1024, 8),    # more clusters than fit at 16
-    (64, 256, 2),    # the 256^2 prime
+    (64, 1024, 2),   # the flagship's prime chunk
+    (4, 256, 8),     # the congested rung's in-step chunk: bands of 32 rows
+    (13, 256, 8),
+    (17, 256, 4),
+    (64, 256, 2),    # its prime chunk
     (200, 512, 1),   # more fields than SMs
-    (4, 5, 4),       # at most one row per band: 5 rows take 4, not 8
+    (4, 64, 2),
+    (4, 63, 1),      # no band of 32 rows at 2 blocks
+    (4, 5, 1),
 ])
-def test_choose_cluster(clusters, h, want):
-    # an H100's answer for 1024-thread blocks: 132 SMs, clusters of 16
-    # only one per GPC
-    fits = {16: 8, 8: 16, 4: 32, 2: 66, 1: 132}
-    assert tff.choose_cluster(clusters, h, fits.__getitem__) == want
+def test_choose_cluster(g, h, want):
+    assert tff.choose_cluster(g, h, H100_CLUSTERS.__getitem__) == want
 
 
-@pytest.mark.parametrize("g,want", [(1, 1), (4, 1), (132, 1), (133, 2),
-                                    (400, 4), (5000, 8)])
-def test_choose_fields_pads_nothing(g, want):
-    fields = tff.choose_fields(g, 132)
-    assert fields == want
-    clusters = -(-g // fields)
-    assert 0 <= clusters * fields - g < fields  # only the last is ragged
+def test_choose_cluster_takes_one_block_where_no_cluster_is_placed():
+    assert tff.choose_cluster(4, 1024, lambda k: 0) == 1
 
 
-@pytest.mark.parametrize("h,w,fields,fits", [
-    (1024, 1024, 1, True), (2048, 1024, 1, False), (256, 256, 8, True),
-    (1024, 1536, 1, True), (8, 196608, 1, False)])
-def test_shared_memory_gate(h, w, fields, fits):
-    """The whole grid's mask bits and the summaries fit one block, so every
-    cluster size fits too."""
-    assert (tff.smem_bytes(1, fields, h, w) <= tff.MAX_SMEM_BYTES) == fits
-    assert all(tff.smem_bytes(k, fields, h, w)
-               <= tff.smem_bytes(1, fields, h, w) for k in (2, 4, 8, 16))
+@pytest.mark.parametrize("g", [1, 4, 64, 200])
+def test_launch_layout_one_cluster_per_field(monkeypatch, g):
+    """One cluster per field, no padded field: G clusters, G K blocks."""
+    monkeypatch.setattr(tff, "max_active_clusters",
+                        lambda device, k, h, w: H100_CLUSTERS[k])
+    layout = tff.launch_layout("cuda", g, 1024, 1024)
+    assert layout["blocks"] == g * layout["cluster"]
+    assert layout["cluster"] == tff.choose_cluster(
+        g, 1024, H100_CLUSTERS.__getitem__)
+    assert tff.launch_layout("cuda", g, 1024, 1024, cluster=4) == {
+        "cluster": 4, "blocks": 4 * g}
+
+
+@pytest.mark.parametrize("cluster", [None, 0, 3, 2.0])
+def test_launch_layout_raises_where_the_kernel_takes_no_layout(monkeypatch,
+                                                               cluster):
+    """The kernel's answer (0: a layout it does not take) decides; a forced
+    layout is never swapped for another."""
+    monkeypatch.setattr(tff, "max_active_clusters",
+                        lambda device, k, h, w: 0 if k in (1, 3) else 8)
+    with pytest.raises(ValueError, match="does not take"):
+        tff.launch_layout("cuda", 4, 16, 32768, cluster)
