@@ -17,12 +17,15 @@ into the next.  Phases:
 2. build    — seconds ``nvcc`` took for every ``csrc/*.cu`` (or a cache
                hit), and the ``ptxas`` report of each source's kernels.
 3. kernel   — ``sweep_scan`` == its plain version (``torch.equal``) for all
-               four (axis, reverse) pairs at the shapes the flagship and
-               1k-512 solves give it (in-step and prime chunks, on their
-               own masks) and at ragged ones; at those path shapes also
-               the kernel's device time per launch (CUDA events around 25
-               back-to-back launches, median of 5 runs), its bytes bound at
-               3.35 TB/s, and the plain version's time.
+               four (axis, reverse) pairs at the shapes the flagship,
+               1k-512 and congested solves give it (in-step and prime
+               chunks, on their own masks) and at ragged ones (R = 70 000,
+               H or W one past a segment, single cells, whole blocked
+               columns on tile edges); each row gives the layout the
+               kernel took; at the path shapes also the kernel's device
+               time per launch (CUDA events around 25 back-to-back
+               launches, median of 5 runs, each run listed), its bytes
+               bound at 3.35 TB/s, and the plain version's time.
 4. fused    — both instances of the fused field kernel == their plain
                version (``torch.equal``): multi at the congested rung's
                in-step and prime chunks on its warehouse, single at the
@@ -211,29 +214,55 @@ def _mask(kind: str, h: int, w: int, rng: np.random.Generator) -> np.ndarray:
 
 KERNEL_CASES = (
     # (R, H, W, mask, timed): the in-step replan chunk and the prime chunk
-    # of the flagship and of 1k-512, then ragged shapes and obstacles on
-    # every edge
+    # of the flagship, of 1k-512 and of the congested rung, then ragged
+    # shapes and obstacles on every edge: whole blocked columns on tile
+    # edges (serpentine), R past a grid's 65 535, H and W one past a
+    # segment of bands or of a row, single cells
     (4, 1024, 1024, "warehouse", True),
     (64, 1024, 1024, "warehouse", True),
     (4, 512, 512, "1k-512", True),
     (128, 512, 512, "1k-512", True),
+    (4, 256, 256, "congested", True),
+    (64, 256, 256, "congested", True),
     (3, 100, 100, "random", False),
     (2, 257, 131, "random", False),
     (1, 8, 4096, "border", False),
+    (2, 1024, 1024, "serpentine", False),
+    (70000, 3, 5, "random", False),
+    (2, 1025, 33, "border", False),
+    (3, 31, 1025, "border", False),
+    (1, 1, 1, "random", False),
+    (2, 33, 1, "random", False),
 )
+
+
+def sweep_inputs(dev: torch.device, r: int, h: int, w: int, kind: str,
+                 rng: np.random.Generator) -> tuple:
+    """(d, blocked) for a sweep case: d (R, H, W) int32 with about 3 % of
+    the free cells seeded in [0, 60), the rest INF, made on the card from a
+    seed of the shape; blocked (H, W) uint8 from :func:`_mask`."""
+    free = torch.from_numpy(_mask(kind, h, w, rng)).to(dev)
+    blocked = (~free).to(torch.uint8).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(r * h + w)
+    seeds = torch.rand((r, h, w), generator=gen, device=dev) > 0.97
+    vals = torch.randint(0, 60, (r, h, w), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return torch.where(seeds & free[None], vals, INF).contiguous(), blocked
+
+
+def sweep_bound(r: int, h: int, w: int) -> dict:
+    """Each cell read and written once (int32) and the mask read once, over
+    the memory rate: the least time a sweep could take."""
+    nbytes = 2 * r * h * w * 4 + h * w
+    return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
 
 
 def phase_kernel(dev: torch.device, card: str) -> list:
     rows = []
     rng = np.random.default_rng(0)
     for r, h, w, kind, timed in KERNEL_CASES:
-        free = torch.from_numpy(_mask(kind, h, w, rng)).to(dev)
-        blocked = (~free).to(torch.uint8).contiguous()
-        gen = torch.Generator(device=dev).manual_seed(r * h + w)
-        seeds = torch.rand((r, h, w), generator=gen, device=dev) > 0.97
-        vals = torch.randint(0, 60, (r, h, w), generator=gen, device=dev,
-                             dtype=torch.int32)
-        d = torch.where(seeds & free[None], vals, INF).contiguous()
+        d, blocked = sweep_inputs(dev, r, h, w, kind, rng)
         for axis, reverse in DIRECTIONS:
             got = sweep_kernel.sweep_scan(d, blocked, axis, reverse)
             want = sweep_kernel.sweep_plain(d, blocked, axis, reverse)
@@ -241,18 +270,19 @@ def phase_kernel(dev: torch.device, card: str) -> list:
             err = int((got.long() - want.long()).abs().max())
             equal = bool(torch.equal(got, want))
             row = {"shape": [r, h, w], "mask": kind, "axis": axis,
-                   "reverse": reverse, "equal": equal, "max_abs_err": err}
+                   "reverse": reverse,
+                   **sweep_kernel.launch_layout(r, h, w, axis),
+                   "equal": equal, "max_abs_err": err}
             if timed:
-                nbytes = 2 * r * h * w * 4 + h * w
-                row["ms"] = _per_launch_ms(
+                row["ms_runs"] = _launch_ms_runs(
                     lambda: sweep_kernel.sweep_scan(d, blocked, axis,
                                                     reverse), TIMED_LAUNCHES)
+                row["ms"] = statistics.median(row["ms_runs"])
                 row["plain_ms"] = _per_launch_ms(
                     lambda: sweep_kernel.sweep_plain(d, blocked, axis,
                                                      reverse), PLAIN_TIMED,
                     reps=3)
-                row["bytes"] = nbytes
-                row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                row.update(sweep_bound(r, h, w))
                 row["card"] = card  # name and power limit beside the bound
             emit("kernel", **row)
             check(equal, f"sweep_scan != plain at {row}")
@@ -609,9 +639,10 @@ def _kernel_entry(name: str, replaces: str, tpu_kernel: str, launches: int,
     at = [r for r in rows if r["shape"] == step_shape and "ms" in r
           and not r.get("forced")]
     mean = lambda key: sum(r[key] for r in at) / len(at)  # noqa: E731
-    timed_keys = ("shape", "forced", "cluster", "blocks", "ms", "plain_ms",
-                  "bound_ms", "bound_by", "bytes_ms", "ops_ms",
-                  "field_rounds_mean", "axis", "reverse")
+    timed_keys = ("shape", "forced", "cluster", "tile", "rows", "bands",
+                  "cells", "blocks", "ms", "ms_runs", "plain_ms", "bound_ms",
+                  "bound_by", "bytes_ms", "ops_ms", "field_rounds_mean",
+                  "axis", "reverse")
     return {
         "name": name, "route": "cuda", "source": (
             "p2p_distributed_tswap_tpu_torch/csrc/" +
@@ -655,7 +686,10 @@ def main() -> int:
             "sweep_scan", "p2p_distributed_tswap_tpu/ops/sweep_pallas.py:209",
             "sweep_pallas._scan8_kernel (and _scan_kernel at :86)",
             flag["main_path_sweep_launches"], rows,
-            STEP_SHAPES["sweep_scan"], card),
+            STEP_SHAPES["sweep_scan"], card,
+            design="along H: bands of rows per column tile, two-phase scan "
+                   "in one block; along W: row segments loaded ahead, "
+                   "raking warp scan"),
         _kernel_entry(
             "field_fused_multi",
             "p2p_distributed_tswap_tpu/ops/field_fused.py:357",

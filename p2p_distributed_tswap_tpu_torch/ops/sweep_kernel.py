@@ -9,7 +9,10 @@ per round until the fixpoint.
 - :func:`sweep_scan` launches the hand-written kernel in
   ``csrc/sweep_scan.cu``, built at first use with the port's other kernels
   into one shared library with a plain C interface (``ops.cuda_build``) and
-  loaded with ``ctypes``.  ``launches`` counts its launches.
+  loaded with ``ctypes``.  ``launches`` counts its launches.  The kernel
+  picks its layout from the shape (bands of rows and column tiles along H,
+  row segments along W); :func:`launch_layout` reports it and
+  :func:`sweep_scan_forced` overrides it, for tests and measurement.
 - :func:`sweep_plain` is the port of the JAX package's portable path,
   ``_seg_min_scan`` + ``_sweep_xla`` (a Hillis-Steele doubling scan in the
   ``INF + axis_len`` sentinel form).  It is the CPU path and the yardstick the
@@ -92,12 +95,76 @@ def sweep_plain(d: torch.Tensor, blocked: torch.Tensor, axis: int,
     return _sweep_xla(d, (blocked == 0)[None], axis, reverse, coord)
 
 
-def _fn():
-    return cuda_build.function(
-        "sweep_scan",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+def _fn(name: str = "sweep_scan"):
+    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int]
+    if name == "sweep_scan_forced":
+        args += [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    return cuda_build.function(name, args + [ctypes.c_void_p])
+
+
+def launch_layout(r: int, h: int, w: int, axis: int, tile: int = 0,
+                  rows: int = 0, bands: int = 0) -> dict:
+    """The layout the kernel takes for an (r, h, w) batch along ``axis``,
+    as ``csrc/sweep_scan.cu`` chooses it (or with ``tile``, ``rows`` and
+    ``bands`` forced, 0 = chosen).  Along H: ``tile`` columns per block
+    (8, 16 or 32), ``rows`` per band (8 or 16), ``bands`` per segment of
+    the column.  Along W: ``cells`` a lane holds per chunk (4: one 16-byte
+    load, 1: a scalar; forced by ``tile``) and the ``segment`` of the row a
+    warp loads ahead (256 or 1024 cells; forced by ``rows`` = its cells per
+    lane, 8 or 32).  Both with the threads and blocks launched.  Raises
+    ValueError for a layout the kernel does not take.  Builds the kernels'
+    library on first use."""
+    fn = cuda_build.function(
+        "sweep_scan_layout",
+        [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p])
+    out = (ctypes.c_longlong * 5)()
+    if fn(r, h, w, axis, tile, rows, bands, ctypes.addressof(out)) != 0:
+        raise ValueError(f"sweep_scan: no layout for ({r}, {h}, {w}) along "
+                         f"axis {axis} with tile={tile} rows={rows} "
+                         f"bands={bands}")
+    tile, rows, bands, threads, blocks = (int(v) for v in out)
+    if axis == 1:
+        return {"tile": tile, "rows": rows, "bands": bands,
+                "threads": threads, "blocks": blocks}
+    return {"cells": tile, "segment": 32 * rows, "threads": threads,
+            "blocks": blocks}
+
+
+def _check(d: torch.Tensor, blocked: torch.Tensor, axis: int) -> None:
+    if not (d.is_cuda and blocked.device == d.device):
+        raise ValueError("sweep_scan: d and blocked must be on one CUDA "
+                         f"device, got {d.device} and {blocked.device}")
+    if d.dtype != torch.int32 or blocked.dtype != torch.uint8:
+        raise TypeError("sweep_scan: need int32 d and uint8 blocked, got "
+                        f"{d.dtype} and {blocked.dtype}")
+    if d.ndim != 3 or blocked.shape != d.shape[1:] or min(d.shape) < 1:
+        raise ValueError(f"sweep_scan: bad shapes d={tuple(d.shape)} "
+                         f"blocked={tuple(blocked.shape)}")
+    if not (d.is_contiguous() and blocked.is_contiguous()):
+        raise ValueError("sweep_scan: d and blocked must be contiguous")
+    if axis not in (1, 2):
+        raise ValueError(f"sweep_scan: axis must be 1 or 2, got {axis}")
+
+
+def _launch(d: torch.Tensor, blocked: torch.Tensor, axis: int, reverse: bool,
+            *forced: int) -> torch.Tensor:
+    global launches
+    _check(d, blocked, axis)
+    fn = _fn("sweep_scan_forced" if forced else "sweep_scan")
+    out = torch.empty_like(d)
+    r, h, w = d.shape
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        rc = fn(d.data_ptr(), blocked.data_ptr(), out.data_ptr(), r, h, w,
+                axis, int(reverse), *forced, stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_scan: launch failed with CUDA error {rc}")
+    launches += 1
+    return out
 
 
 def sweep_scan(d: torch.Tensor, blocked: torch.Tensor, axis: int,
@@ -113,29 +180,13 @@ def sweep_scan(d: torch.Tensor, blocked: torch.Tensor, axis: int,
     Returns a new (R, H, W) int32 tensor.  Raises on anything else, CPU
     tensors included.
     """
-    global launches
-    if not (d.is_cuda and blocked.device == d.device):
-        raise ValueError("sweep_scan: d and blocked must be on one CUDA "
-                         f"device, got {d.device} and {blocked.device}")
-    if d.dtype != torch.int32 or blocked.dtype != torch.uint8:
-        raise TypeError("sweep_scan: need int32 d and uint8 blocked, got "
-                        f"{d.dtype} and {blocked.dtype}")
-    if d.ndim != 3 or blocked.shape != d.shape[1:] or min(d.shape) < 1:
-        raise ValueError(f"sweep_scan: bad shapes d={tuple(d.shape)} "
-                         f"blocked={tuple(blocked.shape)}")
-    if not (d.is_contiguous() and blocked.is_contiguous()):
-        raise ValueError("sweep_scan: d and blocked must be contiguous")
-    if axis not in (1, 2):
-        raise ValueError(f"sweep_scan: axis must be 1 or 2, got {axis}")
-    fn = _fn()
-    out = torch.empty_like(d)
-    r, h, w = d.shape
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        rc = fn(d.data_ptr(), blocked.data_ptr(), out.data_ptr(), r, h, w,
-                axis, int(reverse), stream)
-    if rc != 0:
-        raise RuntimeError(f"sweep_scan: launch failed with CUDA error {rc}")
-    launches += 1
-    return out
+    return _launch(d, blocked, axis, reverse)
 
+
+def sweep_scan_forced(d: torch.Tensor, blocked: torch.Tensor, axis: int,
+                      reverse: bool, tile: int = 0, rows: int = 0,
+                      bands: int = 0) -> torch.Tensor:
+    """:func:`sweep_scan` in a forced layout (see :func:`launch_layout`).
+    For tests and measurement: the solver calls :func:`sweep_scan`.  A
+    layout the kernel does not take raises."""
+    return _launch(d, blocked, axis, reverse, tile, rows, bands)

@@ -69,6 +69,172 @@ def test_kernel_matches_plain(cuda, axis, reverse, r, h, w, edges):
     assert torch.equal(got.cpu(), want)
 
 
+def _check_sweep(cuda, d, blocked, axis, reverse, **forced):
+    want = sweep_kernel.sweep_plain(d, blocked, axis, reverse)
+    before = sweep_kernel.launches
+    if forced:
+        got = sweep_kernel.sweep_scan_forced(d.to(cuda), blocked.to(cuda),
+                                             axis, reverse, **forced)
+    else:
+        got = sweep_kernel.sweep_scan(d.to(cuda), blocked.to(cuda), axis,
+                                      reverse)
+    torch.cuda.synchronize()
+    assert sweep_kernel.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+# The along-H layout (tile, rows, bands) the kernel picks at the solver's
+# sweep shapes (the in-step and prime chunks of 1024^2, 512^2 and 256^2);
+# tests/test_torch_sweep_bands.py emulates each of them on the CPU.
+PATH_LAYOUTS = {
+    (4, 1024, 1024): (32, 16, 32), (64, 1024, 1024): (32, 16, 8),
+    (4, 512, 512): (16, 16, 32), (128, 512, 512): (32, 16, 8),
+    (4, 256, 256): (8, 16, 16), (64, 256, 256): (32, 16, 8),
+}
+
+
+def test_layouts_at_the_path_shapes(cuda):
+    for (r, h, w), (tile, rows, bands) in PATH_LAYOUTS.items():
+        layout = sweep_kernel.launch_layout(r, h, w, 1)
+        assert (layout["tile"], layout["rows"], layout["bands"]) == \
+            (tile, rows, bands)
+        assert layout["threads"] == tile * bands
+        assert layout["blocks"] == r * -(-w // tile) >= 128
+        along_w = sweep_kernel.launch_layout(r, h, w, 2)
+        assert along_w["cells"] == 4 and along_w["segment"] == 256
+
+
+@pytest.mark.parametrize("axis,reverse", DIRECTIONS)
+@pytest.mark.parametrize("r,h,w", [(4, 1024, 1024), (4, 512, 512),
+                                   (4, 256, 256), (64, 512, 512),
+                                   (64, 256, 256)])
+def test_kernel_matches_plain_in_its_chosen_layouts(cuda, axis, reverse, r,
+                                                    h, w):
+    """The in-step chunks and two prime-sized batches (at most 8 bands a
+    block along H), each in the layout the kernel picks."""
+    d, blocked = _inputs(h + axis * 2 + reverse, r, h, w, True)
+    _check_sweep(cuda, d, blocked, axis, reverse)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+@pytest.mark.parametrize("rows", [8, 16])
+def test_every_along_h_layout(cuda, reverse, tile, rows):
+    """Each of the six along-H kernel instances, on a ragged shape: H = 1025
+    is more than one segment in every one of them, W = 75 ends mid-tile."""
+    d, blocked = _inputs(tile + rows + reverse, 2, 1025, 75, True)
+    _check_sweep(cuda, d, blocked, 1, reverse, tile=tile, rows=rows)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("tile,rows,bands", [
+    (32, 16, 1), (32, 8, 3), (16, 16, 2), (8, 8, 4), (8, 16, 128),
+    (32, 16, 16)])
+def test_forced_bands_walk_segments(cuda, reverse, tile, rows, bands):
+    d, blocked = _inputs(bands + reverse, 3, 300, 40, False)
+    _check_sweep(cuda, d, blocked, 1, reverse, tile=tile, rows=rows,
+                 bands=bands)
+
+
+def test_forced_layouts_the_kernel_refuses(cuda):
+    d = torch.zeros((2, 64, 64), dtype=torch.int32, device=cuda)
+    m = torch.zeros((64, 64), dtype=torch.uint8, device=cuda)
+    for forced in ({"tile": 4}, {"tile": 64}, {"rows": 12}, {"rows": 64},
+                   {"tile": 16, "bands": 3}, {"tile": 8, "bands": 129},
+                   {"tile": 32, "bands": 33}, {"tile": 32, "rows": 32},
+                   {"tile": 128}, {"tile": 256}, {"rows": 4}):
+        with pytest.raises(ValueError):
+            sweep_kernel.launch_layout(2, 64, 64, 1, **forced)
+        before = sweep_kernel.launches
+        with pytest.raises(RuntimeError):
+            sweep_kernel.sweep_scan_forced(d, m, 1, False, **forced)
+        assert sweep_kernel.launches == before
+    for forced in ({"tile": 2}, {"tile": 8}, {"rows": 4}, {"rows": 16},
+                   {"rows": 64}, {"bands": 1}):
+        with pytest.raises(ValueError):
+            sweep_kernel.launch_layout(2, 64, 64, 2, **forced)
+        with pytest.raises(RuntimeError):
+            sweep_kernel.sweep_scan_forced(d, m, 2, False, **forced)
+    with pytest.raises(ValueError):  # no 16-byte loads on rows of 63
+        sweep_kernel.launch_layout(2, 64, 63, 2, tile=4)
+    with pytest.raises(RuntimeError):
+        sweep_kernel.sweep_scan_forced(d[:, :, :63].contiguous(),
+                                       m[:, :63].contiguous(), 2, False,
+                                       tile=4)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cells", [1, 4])
+@pytest.mark.parametrize("lane_cells", [8, 32])
+@pytest.mark.parametrize("w", [4, 128, 256, 1024, 4100])
+def test_every_along_w_layout(cuda, reverse, cells, lane_cells, w):
+    """One cell per lane (scalar loads) and four (16-byte loads), in
+    segments of 256 and 1024 cells, forced on rows that take any of them:
+    one chunk, one segment, several."""
+    d, blocked = _inputs(w + cells + reverse, 3, 21, w, True)
+    _check_sweep(cuda, d, blocked, 2, reverse, tile=cells, rows=lane_cells)
+
+
+@pytest.mark.parametrize("axis,reverse", DIRECTIONS)
+@pytest.mark.parametrize("r", [1, 4, 64, 70000])
+def test_field_counts(cuda, axis, reverse, r):
+    """R up to past the 65 535 of a grid's y dimension, on a narrow grid."""
+    d, blocked = _inputs(r + axis + reverse, r, 9, 12, True)
+    _check_sweep(cuda, d, blocked, axis, reverse)
+
+
+@pytest.mark.parametrize("axis,reverse", DIRECTIONS)
+@pytest.mark.parametrize("h", [1, 31, 33, 1025])
+@pytest.mark.parametrize("w", [1, 31, 33, 1025])
+def test_ragged_heights_and_widths(cuda, axis, reverse, h, w):
+    d, blocked = _inputs(h * w + axis + reverse, 2, h, w, False)
+    _check_sweep(cuda, d, blocked, axis, reverse)
+
+
+@pytest.mark.parametrize("axis,reverse", DIRECTIONS)
+@pytest.mark.parametrize("h,w", [(1024, 1024), (512, 512), (256, 256),
+                                 (300, 4100)])
+def test_goals_and_obstacles_on_band_and_tile_edges(cuda, axis, reverse, h,
+                                                    w):
+    """Seeds and obstacles on the first and last row of every band and
+    segment of the chosen layout (both scan orders), on every tile's edge
+    columns, and on every lane's and chunk's edge cells along W."""
+    layout = sweep_kernel.launch_layout(4, h, w, 1)
+    rng = np.random.default_rng(h + w + axis + reverse)
+    free = rng.random((h, w)) > 0.1
+    seeds = np.zeros((4, h, w), dtype=bool)
+    rows = {0, layout["rows"], layout["rows"] * layout["bands"]} - {0}
+    for step in rows:
+        for y in range(0, h, step):
+            for yy in {y, y - 1, h - 1 - y, h - y} & set(range(h)):
+                free[yy, rng.integers(w, size=w // 4)] = False
+                seeds[:, yy, rng.integers(w, size=w // 4)] = True
+    for step in (layout["tile"], 4, 128, 1024):
+        for x in range(0, w, step):
+            for xx in {x, x - 1, w - 1 - x, w - x} & set(range(w)):
+                free[rng.integers(h, size=h // 4), xx] = False
+                seeds[:, rng.integers(h, size=h // 4), xx] = True
+    d = np.where(seeds & free[None], rng.integers(0, 60, (4, h, w)), INF)
+    _check_sweep(cuda, torch.from_numpy(d.astype(np.int32)),
+                 torch.from_numpy((~free).astype(np.uint8)), axis, reverse)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_along_w_on_unaligned_tensors(cuda, reverse):
+    """W % 4 == 0 but the tensors start 4 bytes past an alignment: the
+    kernel takes its scalar loads, not the 16-byte vectors."""
+    d, blocked = _inputs(8 + reverse, 3, 17, 64, True)
+    want = sweep_kernel.sweep_plain(d, blocked, 2, reverse)
+    dd = torch.empty(1 + d.numel(), dtype=torch.int32, device=cuda)
+    dd[1:] = d.reshape(-1).to(cuda)
+    mm = torch.empty(1 + blocked.numel(), dtype=torch.uint8, device=cuda)
+    mm[1:] = blocked.reshape(-1).to(cuda)
+    got = sweep_kernel.sweep_scan(dd[1:].view(d.shape), mm[1:].view(
+        blocked.shape), 2, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
 def test_wrapper_checks_dtype_shape_layout(cuda):
     d = torch.zeros((2, 4, 5), dtype=torch.int32, device=cuda)
     m = torch.zeros((4, 5), dtype=torch.uint8, device=cuda)
