@@ -17,10 +17,11 @@ both versions are held to ``sweep_plain`` (``torch.equal``) and timed in
 turns, baseline, current, current, baseline, each turn chip_smoke.py's
 measurement (5 runs of 25 launches queued behind a device sleep, CUDA
 events), so each version has 10 runs.  With ``--layouts`` every forced
-layout of ``LAYOUTS`` is checked and timed too (the current source only, 5
-runs): along H other tile widths, band heights and band counts (one band
-of 8 rows a block is a plain walk down each column in steps of 8); along W
-one cell per lane against four, in segments of 256 and 1024 cells.
+layout is checked and timed too (the current source only, 5 runs): the
+chosen one (``sweep_kernel.launch_layout``) and the alternatives of
+``LAYOUTS``, along H other tile widths, band heights and band counts (one
+band of 8 rows a block is a plain walk down each column in steps of 8),
+along W one cell per lane (scalar loads) against the chosen four.
 
 Prints one JSON line per row, then one with the card; ``--out`` writes the
 rows as one JSON object.  Exits non-zero without a card, or when a version
@@ -52,23 +53,32 @@ from p2p_distributed_tswap_tpu_torch.ops import (  # noqa: E402
 BUILD = REPO / "build" / "sweep_baseline"
 TIMED = [case[:4] for case in chip_smoke.KERNEL_CASES if case[4]]
 # Forced layouts timed beside the chosen one: (R, H, W) -> along-H (tile,
-# rows, bands) triples, the chosen one first; along W every (cells per
-# lane, cells a lane loads per segment) pair at every shape.
+# rows, bands) triples; along W one cell per lane at every shape.
 LAYOUTS = {
-    (4, 1024, 1024): [(32, 16, 32), (32, 8, 32), (32, 16, 16), (16, 16, 64),
-                      (16, 8, 64), (32, 16, 8), (32, 8, 1)],
-    (64, 1024, 1024): [(32, 16, 8), (32, 16, 32), (32, 16, 16), (32, 16, 4),
-                       (32, 8, 4), (16, 16, 16), (32, 8, 1)],
-    (4, 512, 512): [(16, 16, 32), (16, 8, 64), (16, 8, 32), (8, 16, 32),
-                    (32, 16, 32), (16, 16, 8), (32, 8, 1)],
-    (128, 512, 512): [(32, 16, 8), (32, 16, 32), (32, 16, 16), (32, 16, 4),
-                      (32, 8, 4), (16, 16, 16), (32, 8, 1)],
-    (4, 256, 256): [(8, 16, 16), (8, 8, 32), (16, 16, 16), (16, 8, 32),
-                    (8, 16, 8), (32, 8, 1)],
-    (64, 256, 256): [(32, 16, 8), (32, 16, 16), (32, 8, 32), (16, 16, 16),
-                     (32, 16, 4), (32, 8, 4), (32, 8, 1)],
+    (4, 1024, 1024): [(32, 8, 32), (32, 16, 16), (16, 16, 64), (16, 8, 64),
+                      (32, 16, 8), (32, 8, 1)],
+    (64, 1024, 1024): [(32, 16, 32), (32, 16, 16), (32, 16, 4), (32, 8, 4),
+                       (16, 16, 16), (32, 8, 1)],
+    (4, 512, 512): [(16, 8, 64), (16, 8, 32), (8, 16, 32), (32, 16, 32),
+                    (16, 16, 8), (32, 8, 1)],
+    (128, 512, 512): [(32, 16, 32), (32, 16, 16), (32, 16, 4), (32, 8, 4),
+                      (16, 16, 16), (32, 8, 1)],
+    (4, 256, 256): [(8, 8, 32), (16, 16, 16), (16, 8, 32), (8, 16, 8),
+                    (32, 8, 1)],
+    (64, 256, 256): [(32, 16, 16), (32, 8, 32), (16, 16, 16), (32, 16, 4),
+                     (32, 8, 4), (32, 8, 1)],
 }
-W_LAYOUTS = [{"tile": c, "rows": n} for c in (1, 4) for n in (8, 32)]
+W_LAYOUTS = [{"tile": 1}]
+
+
+def forced_layouts(r: int, h: int, w: int, axis: int) -> list:
+    """The chosen layout as forced arguments, then the alternatives."""
+    chosen = sweep_kernel.launch_layout(r, h, w, axis)
+    if axis == 2:
+        return [{"tile": chosen["cells"]}] + W_LAYOUTS
+    return [{"tile": chosen["tile"], "rows": chosen["rows"],
+             "bands": chosen["bands"]}] + [
+        {"tile": t, "rows": b, "bands": n} for t, b, n in LAYOUTS[(r, h, w)]]
 
 
 def build_baseline(source: Path) -> ctypes.CDLL:
@@ -153,11 +163,8 @@ def main() -> int:
             print(json.dumps(row), flush=True)
             if not args.layouts or not reverse:
                 continue  # the forced layouts once per axis, both ways
-            forced = ([{"tile": t, "rows": b, "bands": n}
-                       for t, b, n in LAYOUTS[(r, h, w)]] if axis == 1
-                      else W_LAYOUTS)
             for reverse_f in (False, True):
-                for lay in forced:
+                for lay in forced_layouts(r, h, w, axis):
                     def fn(lay=lay, reverse_f=reverse_f):
                         return sweep_kernel.sweep_scan_forced(
                             d, blocked, axis, reverse_f, **lay)

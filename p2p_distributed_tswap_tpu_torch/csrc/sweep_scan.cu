@@ -64,8 +64,8 @@
 // Interface: plain C, loaded with ctypes.  The caller passes device pointers
 // and the CUDA stream; the launch is asynchronous and allocates nothing.
 // `sweep_scan` picks the layout; `sweep_scan_forced` takes it as (tile,
-// rows, bands), 0 = the chosen one (see Layout), for tests and
-// measurement; `sweep_scan_layout` reports a layout without launching.
+// rows, bands), 0 = the chosen one (see Layout; along W only the tile),
+// for tests and measurement; `sweep_scan_layout` reports a layout without launching.
 // Each launch returns cudaGetLastError() after it (0 = success), a layout
 // it does not take cudaErrorInvalidValue.
 
@@ -185,7 +185,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 // any: kCells = 4 is one int4 per chunk (W % 4 == 0, 16-byte aligned
 // tensors), kCells = 1 one coalesced scalar per chunk (any W).
 constexpr int kRowThreads = 256;  // 8 warps, one row each
-constexpr int kChosenLaneCells = 8;  // cells a lane loads per segment
+constexpr int kLaneCells = 8;     // cells a lane loads per segment
 
 // The lane's kCells cells of the chunk starting at scan position p, in scan
 // order (cells past W: free INF); returns their blocked bits.  As along H,
@@ -292,7 +292,7 @@ __device__ __forceinline__ void scan_chunk(int (&v)[kCells], uint32_t m,
   }
 }
 
-template <int kCells, int kLaneCells>
+template <int kCells>
 __global__ void __launch_bounds__(kRowThreads)
     sweep_along_w(const int* __restrict__ d,
                   const uint8_t* __restrict__ blocked, int* __restrict__ out,
@@ -334,8 +334,7 @@ __global__ void __launch_bounds__(kRowThreads)
 
 // A launch's layout.  Along H: tile = columns per block (8, 16 or 32),
 // rows per band (8 or 16), bands per segment.  Along W: tile = cells per
-// lane per chunk (1 or 4), rows = cells a lane loads per segment (8 or 32),
-// bands = 0.
+// lane per chunk (1 or 4), rows = bands = 0.
 struct Layout {
   int tile, rows, bands, threads;
   long long blocks;
@@ -390,16 +389,15 @@ bool choose_h_layout(long long R, long long H, long long W, int tile,
 }
 
 // The along-W layout; `aligned`: W % 4 == 0 and 16-byte aligned tensors.
+// Only the cells per lane can be forced.
 bool choose_w_layout(long long R, long long H, bool aligned, int tile,
                      int rows, int bands, Layout* out) {
   const int cells = tile ? tile : (aligned ? 4 : 1);
-  const int lane_cells = rows ? rows : kChosenLaneCells;
-  if (bands || (cells != 1 && cells != 4) || (cells == 4 && !aligned) ||
-      (lane_cells != 8 && lane_cells != 32)) {
+  if (rows || bands || (cells != 1 && cells != 4) ||
+      (cells == 4 && !aligned)) {
     return false;
   }
-  *out = {cells, lane_cells, 0, kRowThreads,
-          cdiv(R * H, kRowThreads / 32)};
+  *out = {cells, 0, 0, kRowThreads, cdiv(R * H, kRowThreads / 32)};
   return true;
 }
 
@@ -437,13 +435,8 @@ void launch_bands(const Layout& L, const Args& a) {
 
 template <int kCells>
 void launch_rows(const Layout& L, const Args& a) {
-  if (L.rows == 8) {
-    sweep_along_w<kCells, 8><<<grid_of(L), L.threads, 0, a.s>>>(
-        a.d, a.m, a.o, a.R * a.H, a.H, a.W, a.reverse);
-  } else {
-    sweep_along_w<kCells, 32><<<grid_of(L), L.threads, 0, a.s>>>(
-        a.d, a.m, a.o, a.R * a.H, a.H, a.W, a.reverse);
-  }
+  sweep_along_w<kCells><<<grid_of(L), L.threads, 0, a.s>>>(
+      a.d, a.m, a.o, a.R * a.H, a.H, a.W, a.reverse);
 }
 
 void launch(int axis, const Layout& L, const Args& a) {

@@ -111,11 +111,10 @@ def launch_layout(r: int, h: int, w: int, axis: int, tile: int = 0,
     ``bands`` forced, 0 = chosen).  Along H: ``tile`` columns per block
     (8, 16 or 32), ``rows`` per band (8 or 16), ``bands`` per segment of
     the column.  Along W: ``cells`` a lane holds per chunk (4: one 16-byte
-    load, 1: a scalar; forced by ``tile``) and the ``segment`` of the row a
-    warp loads ahead (256 or 1024 cells; forced by ``rows`` = its cells per
-    lane, 8 or 32).  Both with the threads and blocks launched.  Raises
-    ValueError for a layout the kernel does not take.  Builds the kernels'
-    library on first use."""
+    load, 1: a scalar; forced by ``tile``; ``rows`` and ``bands`` stay 0).
+    Both with the threads and blocks launched.  Raises ValueError for a
+    layout the kernel does not take.  Builds the kernels' library on first
+    use."""
     fn = cuda_build.function(
         "sweep_scan_layout",
         [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
@@ -130,8 +129,7 @@ def launch_layout(r: int, h: int, w: int, axis: int, tile: int = 0,
     if axis == 1:
         return {"tile": tile, "rows": rows, "bands": bands,
                 "threads": threads, "blocks": blocks}
-    return {"cells": tile, "segment": 32 * rows, "threads": threads,
-            "blocks": blocks}
+    return {"cells": tile, "threads": threads, "blocks": blocks}
 
 
 def _check(d: torch.Tensor, blocked: torch.Tensor, axis: int) -> None:

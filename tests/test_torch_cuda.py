@@ -85,7 +85,8 @@ def _check_sweep(cuda, d, blocked, axis, reverse, **forced):
 
 # The along-H layout (tile, rows, bands) the kernel picks at the solver's
 # sweep shapes (the in-step and prime chunks of 1024^2, 512^2 and 256^2);
-# tests/test_torch_sweep_bands.py emulates each of them on the CPU.
+# tests/test_torch_sweep_bands.py imports it and emulates each of them on
+# the CPU.
 PATH_LAYOUTS = {
     (4, 1024, 1024): (32, 16, 32), (64, 1024, 1024): (32, 16, 8),
     (4, 512, 512): (16, 16, 32), (128, 512, 512): (32, 16, 8),
@@ -101,7 +102,7 @@ def test_layouts_at_the_path_shapes(cuda):
         assert layout["threads"] == tile * bands
         assert layout["blocks"] == r * -(-w // tile) >= 128
         along_w = sweep_kernel.launch_layout(r, h, w, 2)
-        assert along_w["cells"] == 4 and along_w["segment"] == 256
+        assert along_w["cells"] == 4 and along_w["threads"] == 256
 
 
 @pytest.mark.parametrize("axis,reverse", DIRECTIONS)
@@ -149,8 +150,8 @@ def test_forced_layouts_the_kernel_refuses(cuda):
         with pytest.raises(RuntimeError):
             sweep_kernel.sweep_scan_forced(d, m, 1, False, **forced)
         assert sweep_kernel.launches == before
-    for forced in ({"tile": 2}, {"tile": 8}, {"rows": 4}, {"rows": 16},
-                   {"rows": 64}, {"bands": 1}):
+    for forced in ({"tile": 2}, {"tile": 8}, {"rows": 8}, {"rows": 32},
+                   {"bands": 1}):
         with pytest.raises(ValueError):
             sweep_kernel.launch_layout(2, 64, 64, 2, **forced)
         with pytest.raises(RuntimeError):
@@ -165,14 +166,12 @@ def test_forced_layouts_the_kernel_refuses(cuda):
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("cells", [1, 4])
-@pytest.mark.parametrize("lane_cells", [8, 32])
 @pytest.mark.parametrize("w", [4, 128, 256, 1024, 4100])
-def test_every_along_w_layout(cuda, reverse, cells, lane_cells, w):
-    """One cell per lane (scalar loads) and four (16-byte loads), in
-    segments of 256 and 1024 cells, forced on rows that take any of them:
-    one chunk, one segment, several."""
+def test_every_along_w_layout(cuda, reverse, cells, w):
+    """One cell per lane (scalar loads) and four (16-byte loads), forced
+    on rows that take either: one chunk, one 256-cell segment, several."""
     d, blocked = _inputs(w + cells + reverse, 3, 21, w, True)
-    _check_sweep(cuda, d, blocked, 2, reverse, tile=cells, rows=lane_cells)
+    _check_sweep(cuda, d, blocked, 2, reverse, tile=cells)
 
 
 @pytest.mark.parametrize("axis,reverse", DIRECTIONS)

@@ -19,19 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cuda import PATH_LAYOUTS
+
 from p2p_distributed_tswap_tpu.ops import sweep_pallas
 from p2p_distributed_tswap_tpu_torch.ops import sweep_kernel
 
 INF = sweep_kernel.INF
 DIRECTIONS = [(1, False), (1, True), (2, False), (2, True)]
-# The along-H layout (tile columns, rows per band, bands per segment) that
-# csrc/sweep_scan.cu picks at the solver's sweep shapes: the in-step and
-# prime chunks of 1024^2 (flagship), 512^2 (1k-512) and 256^2 (congested).
-PATH_LAYOUTS = {
-    (4, 1024, 1024): (32, 16, 32), (64, 1024, 1024): (32, 16, 8),
-    (4, 512, 512): (16, 16, 32), (128, 512, 512): (32, 16, 8),
-    (4, 256, 256): (8, 16, 16), (64, 256, 256): (32, 16, 8),
-}
+LANE_CELLS = 8  # cells a lane loads per row segment (kLaneCells)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -99,15 +94,15 @@ def emulate_along_h(d, blocked, reverse, tile, rows, bands):
     return out.flip(1) if reverse else out
 
 
-def emulate_along_w(d, blocked, reverse, cells, lane_cells):
-    """``sweep_along_w<cells, lane_cells>`` of csrc/sweep_scan.cu: one warp
-    per (field, row), segments of 32 * ``lane_cells`` cells in chunks of 32
-    lanes x ``cells`` cells, the carry from chunk to chunk; inside a chunk
-    the ballot and five shuffle rounds."""
+def emulate_along_w(d, blocked, reverse, cells):
+    """``sweep_along_w<cells>`` of csrc/sweep_scan.cu: one warp per
+    (field, row), segments of 256 cells in chunks of 32 lanes x ``cells``
+    cells, the carry from chunk to chunk; inside a chunk the ballot and
+    five shuffle rounds."""
     r, h, w = d.shape
     if reverse:
         d, blocked = d.flip(2), blocked.flip(1)
-    chunk, seg = 32 * cells, 32 * lane_cells
+    chunk, seg = 32 * cells, 32 * LANE_CELLS
     wp = -(-w // chunk) * chunk
     v = torch.full((r, h, wp), INF, dtype=torch.int32)
     v[:, :, :w] = d
@@ -212,18 +207,16 @@ def test_band_split_along_h_equals_the_plain_sweep(reverse, r, h, w, layout,
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("w,cells,lane_cells", [
+@pytest.mark.parametrize("w,cells", [
     # the layout the kernel takes at each W (4 cells a lane where
-    # W % 4 == 0, segments of 256 cells), and others it can be forced to
-    (1, 1, 8), (3, 1, 8), (33, 1, 8), (256, 4, 8), (1023, 1, 8),
-    (4096, 4, 8), (4100, 4, 8), (4096, 1, 32), (1000, 4, 32),
-    (300, 1, 32)])
+    # W % 4 == 0), and the scalar one it takes on unaligned tensors
+    (1, 1), (3, 1), (33, 1), (256, 4), (1023, 1), (4096, 4), (4100, 4),
+    (4096, 1), (1000, 4), (300, 1)])
 @pytest.mark.parametrize("kind", ["random", "edges"])
-def test_row_segments_along_w_equal_the_plain_sweep(reverse, w, cells,
-                                                    lane_cells, kind):
+def test_row_segments_along_w_equal_the_plain_sweep(reverse, w, cells, kind):
     r, h = (2, 3) if w < 4096 else (1, 2)
     d, blocked = _inputs(w + reverse, r, h, w, kind)
-    got = emulate_along_w(d, blocked, reverse, cells, lane_cells)
+    got = emulate_along_w(d, blocked, reverse, cells)
     np.testing.assert_array_equal(got.numpy(), _plain(d, blocked, 2, reverse))
 
 
@@ -235,7 +228,7 @@ def test_whole_blocked_columns_and_rows(axis, reverse):
     if axis == 1:
         got = emulate_along_h(d, blocked, reverse, 8, 8, 4)
     else:
-        got = emulate_along_w(d, blocked, reverse, 4, 32)
+        got = emulate_along_w(d, blocked, reverse, 4)
     np.testing.assert_array_equal(got.numpy(),
                                   _plain(d, blocked, axis, reverse))
 
@@ -261,5 +254,5 @@ def test_emulations_match_the_pallas_kernels(_interpret_mode, axis, reverse):
         got = emulate_along_h(d, blocked, reverse,
                               *PATH_LAYOUTS[(4, 256, 256)])
     else:
-        got = emulate_along_w(d, blocked, reverse, 4, 8)
+        got = emulate_along_w(d, blocked, reverse, 4)
     np.testing.assert_array_equal(got.numpy(), pal)
