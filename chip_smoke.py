@@ -56,12 +56,44 @@ into the next.  Phases:
                folded over every step.
 10. flagship_single — the same under ``MAPD_FUSED=single``: its prime's
                packed rows == the default prime's, then the same window.
-11. kernels — one JSON object describing every kernel of the paths.
-12. the last line: ``{"ok": true, "device": {...}}``.
+11. serve_parity — the serving path (``runtime/solverd.py``'s
+               ``TickRunner``, in process) on ``ref-50x100x100``: one
+               closed-loop fleet, 100 ticks, each tick sent on the packed1
+               wire and on JSON to a runner on ``cuda`` and one on ``cpu``
+               (deferred fields off on all four): every reply's ``data``
+               and ``moves`` identical across the devices, and the packed
+               plan equal to the JSON plan.
+12. serve_1k_512 — ``1k-512`` served: one snapshot, then 300 delta ticks
+               from the closed-loop fleet below; every tick's move
+               set certified; tick ms p50/p95/max, per-phase ms, fresh
+               sweeps, host syncs and kernel launches per tick, cache rows
+               and bytes, tasks completed, ticks over the 500 ms budget.
+               Run unset and under ``MAPD_FUSED=single``: every reply's
+               bytes identical.
+13. serve_congested_fused — ``3k-256-congested`` served, 100 ticks, unset
+               and under ``MAPD_FUSED=1``: replies identical.
+14. serve_flagship — ``10k-1024-warehouse`` served: the snapshot (about
+               10k fresh goals swept in chunks of 8 into a 16 384-row
+               cache) timed, then 50 delta ticks, numbers as in 12.
+15. checkpoint — the ref rung on ``cuda``: saved at step 60, loaded into a
+               fresh state and finished: paths and makespan identical to
+               the uninterrupted solve.
+16. kernels — one JSON object describing every kernel of the paths.
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Each path (phase 9 for ``sweep_scan``, 8 for the multi instance, 10 for the
-single instance) is driven with every kernel's and the host syncs' counts set
-to 0 just before it and read just after it.
+single instance, and each served run of 12-14 for the kernels it takes) is
+driven with every kernel's and the host syncs' counts set to 0 just before
+it and read just after it.
+
+The fleet (``ServeFleet``) does with each reply what the C++ centralized
+manager does: it adopts the moves; it adopts returned goals, the task
+following its goal (``adopt_goal_exchanges`` in
+``cpp/manager_centralized/main.cpp``: the agent whose old goal a returned
+goal was takes that agent's task, a donor left with nothing goes idle, a
+displaced task is re-queued); an agent on its pickup heads for the
+delivery, and one on its delivery cell completes the task and takes the
+scenario's next (the task list read in a cycle).
 
 Exits non-zero, before printing any result, when CUDA is not available.
 """
@@ -75,6 +107,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,7 +120,9 @@ from p2p_distributed_tswap_tpu_torch.ops import (
     field_fused,
     sweep_kernel,
 )
-from p2p_distributed_tswap_tpu_torch.solver import invariants, mapd
+from p2p_distributed_tswap_tpu_torch.runtime import plan_codec as pcodec
+from p2p_distributed_tswap_tpu_torch.runtime import solverd
+from p2p_distributed_tswap_tpu_torch.solver import checkpoint, invariants, mapd
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published device-memory rate
 # H100 SXM published rate outside the tensor cores for 32-bit operands (the
@@ -105,6 +140,12 @@ PLAIN_TIMED = 5
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of device time to queue launches behind
 FLAGSHIP_WARMUP = 5
 FLAGSHIP_WINDOW = 50
+SERVE_PARITY_TICKS = 100
+SERVE_MEDIUM_TICKS = 300
+SERVE_CONGESTED_TICKS = 100
+SERVE_FLAGSHIP_TICKS = 50
+CHECKPOINT_STEP = 60
+NO_SNAPSHOT = 1 << 30  # snapshot_every: one snapshot, then deltas only
 
 
 def emit(phase: str, **fields) -> None:
@@ -630,6 +671,354 @@ def phase_flagship_single(dev: torch.device, default: dict) -> dict:
     return out
 
 
+class ServeFleet:
+    """A closed-loop stand-in for the C++ centralized manager: the fleet
+    state it sends each tick, and what it does with each reply (see the
+    module docstring).  Lane k of the packed wire is agent k (one roster,
+    no joins or leaves)."""
+
+    IDLE, PICKUP, DELIVERY = 0, 1, 2
+
+    def __init__(self, grid, starts, tasks):
+        self.w = grid.width
+        self.free = np.asarray(grid.free).reshape(-1)
+        self.tasks = np.asarray(tasks, np.int64)
+        n = len(starts)
+        self.names = [f"a{k}" for k in range(n)]
+        self.pos = np.asarray(starts, np.int64).copy()
+        self.goal = self.pos.copy()
+        self.task = np.full(n, -1, np.int64)
+        self.phase = np.zeros(n, np.int8)
+        self.requeued: list = []
+        self.next_task = 0
+        self.completed = 0
+        self.exchanges = 0
+
+    def _take(self, k: int) -> None:
+        if self.requeued:
+            t = self.requeued.pop(0)
+        else:
+            t = self.next_task % len(self.tasks)
+            self.next_task += 1
+        self.task[k], self.phase[k] = t, self.PICKUP
+        self.goal[k] = self.tasks[t, 0]
+
+    def transitions(self) -> None:
+        """Arrivals, then idle agents take the next task."""
+        at = self.pos == self.goal
+        for k in np.flatnonzero(at & (self.phase == self.PICKUP)):
+            self.phase[k] = self.DELIVERY
+            self.goal[k] = self.tasks[self.task[k], 1]
+        done = (self.pos == self.goal) & (self.phase == self.DELIVERY)
+        self.completed += int(done.sum())
+        self.phase[done] = self.IDLE
+        self.task[done] = -1
+        for k in np.flatnonzero(self.phase == self.IDLE):
+            self._take(int(k))
+
+    def items(self) -> list:
+        return list(zip(self.names, self.pos.tolist(), self.goal.tolist()))
+
+    def json_request(self, seq: int) -> dict:
+        w = self.w
+        return {"type": "plan_request", "seq": seq, "agents": [
+            {"peer_id": n, "pos": [p % w, p // w], "goal": [g % w, g // w]}
+            for n, p, g in self.items()]}
+
+    def certify(self, lanes, npos) -> bool:
+        """The move set of one reply: unit steps, on free cells,
+        vertex-disjoint over the whole fleet."""
+        nxt = self.pos.copy()
+        nxt[lanes] = npos
+        d = (np.abs(nxt % self.w - self.pos % self.w)
+             + np.abs(nxt // self.w - self.pos // self.w))
+        return bool((d <= 1).all() and self.free[nxt].all()
+                    and np.unique(nxt).size == nxt.size)
+
+    def adopt(self, lanes, npos, ngoal) -> None:
+        """Moves, and goal exchanges with the task following its goal."""
+        lanes = np.asarray(lanes, np.int64)
+        self.pos[lanes] = npos
+        old = self.goal.copy()
+        new = old.copy()
+        new[lanes] = ngoal
+        changed = np.flatnonzero(new != old)
+        if changed.size == 0:
+            return
+        donors: dict = {}
+        for k in changed:
+            donors.setdefault(int(old[k]), []).append(int(k))
+        task, phase = self.task.copy(), self.phase.copy()
+        incoming, donated = {}, set()
+        for k in changed:
+            for j in donors.get(int(new[k]), ()):
+                if j in donated or j == k:
+                    continue
+                incoming[int(k)] = (task[j], phase[j])
+                donated.add(j)
+                break
+        for k in (int(k) for k in changed):
+            if k in donated and k not in incoming:
+                self.task[k], self.phase[k] = -1, self.IDLE
+                self.goal[k] = self.pos[k]
+            elif k in incoming:
+                if k not in donated and task[k] >= 0:
+                    self.requeued.append(int(task[k]))
+                t, ph = incoming[k]
+                # an idle donor's positional goal leaves the agent idle
+                self.task[k], self.phase[k] = t, (ph if t >= 0 else
+                                                  self.IDLE)
+                self.goal[k] = (self.pos[k] if t < 0 else
+                                self.tasks[t, 1 if ph == self.DELIVERY
+                                           else 0])
+                self.exchanges += 1
+
+
+class _PhaseBeats:
+    """The heartbeat hook of ``TickRunner``: keeps each served tick's
+    per-phase ms (the service's ``last_phase_ms`` plus decode and
+    encode) instead of writing them to a file."""
+
+    def __init__(self):
+        self.over_budget_ticks = 0
+        self.ticks: list = []
+
+    def beat(self, seq, agents, phase_ms, counters=None) -> None:
+        self.ticks.append(dict(phase_ms))
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def _serve(scn, dev: torch.device, ticks: int, fused: str = "",
+           keep_bytes: bool = True) -> dict:
+    """Serve ``scn`` (seed 0) through the port's ``TickRunner`` on ``dev``:
+    one packed snapshot, then ``ticks`` delta ticks of the closed-loop
+    fleet, every move set certified.  Counts are set to 0 just before the
+    snapshot and read after the last tick."""
+    grid, starts, tasks, _ = scn.build(seed=0)
+    fleet = ServeFleet(grid, starts, tasks)
+    beats = _PhaseBeats()
+    with fused_env(fused):
+        svc = solverd.PlanService(grid, device=dev)
+        runner = solverd.TickRunner(svc, grid, heartbeat=beats)
+        enc = pcodec.PackedFleetEncoder(snapshot_every=NO_SNAPSHOT)
+        datas, tick_ms, fresh, syncs, launches = [], [], [], [], []
+        certified = True
+        reset_counts()
+        for seq in range(ticks + 1):
+            fleet.transitions()
+            req = {"type": "plan_request", "seq": seq,
+                   "codec": pcodec.CODEC_NAME, "caps": [pcodec.CODEC_NAME],
+                   "data": pcodec.encode_b64(
+                       enc.encode_tick(seq, fleet.items()))}
+            c0, m0 = _counts(), svc.cache_misses
+            t0 = time.perf_counter()
+            resp = runner.handle(req)
+            ms = 1e3 * (time.perf_counter() - t0)
+            c1 = _counts()
+            check(resp is not None, f"{scn.name}: no reply at seq {seq}")
+            rp = pcodec.decode_b64(resp["data"])
+            check(rp.seq == seq, f"{scn.name}: reply seq {rp.seq} != {seq}")
+            ok = fleet.certify(rp.idx, rp.pos)
+            certified = certified and ok
+            check(ok, f"{scn.name}: tick {seq} moves are not certified")
+            fleet.adopt(rp.idx, rp.pos, rp.goal)
+            if keep_bytes:
+                datas.append(resp["data"])
+            if seq == 0:
+                snap = {"snapshot_ms": ms, "snapshot_fresh_sweeps":
+                        svc.cache_misses - m0,
+                        "snapshot_launches": {k: c1[k] - c0[k]
+                                              for k in c1}}
+                continue
+            tick_ms.append(ms)
+            fresh.append(svc.cache_misses - m0)
+            syncs.append(c1["syncs"] - c0["syncs"])
+            launches.append({k: c1[k] - c0[k] for k in c1 if k != "syncs"})
+        main_counts = _counts()
+    phases = {k: statistics.median(t[k] for t in beats.ticks[1:])
+              for k in beats.ticks[-1]}
+    per_tick = {k: sum(x[k] for x in launches) / ticks for k in launches[0]}
+    rows = int(svc.dirs.shape[0])
+    out = {
+        "scenario": scn.name, "agents": len(starts),
+        "grid": [grid.height, grid.width], "fused_mode": fused or "unset",
+        "delta_ticks": ticks, **snap,
+        "tick_ms_p50": _pct(tick_ms, 50), "tick_ms_p95": _pct(tick_ms, 95),
+        "tick_ms_max": max(tick_ms), "tick_ms_mean": float(np.mean(tick_ms)),
+        "phase_ms_median": phases,
+        "fresh_sweeps_per_tick": sum(fresh) / ticks,
+        "host_syncs_per_tick": sum(syncs) / ticks,
+        "launches_per_tick": per_tick,
+        "main_path_counts": main_counts,
+        "cache_rows_used": len(svc.goal_rows), "cache_rows": rows,
+        "cache_bytes": svc.dirs.numel() * svc.dirs.element_size(),
+        "tasks_completed": fleet.completed,
+        "goal_exchanges_adopted": fleet.exchanges,
+        "over_budget_ticks": sum(1 for m in tick_ms
+                                 if m > solverd.TICK_BUDGET_MS),
+        "certified": certified, "recompiles": svc.recompiles}
+    return {"out": out, "datas": datas}
+
+
+def phase_serve_parity(dev: torch.device) -> dict:
+    """The ref rung served on both devices and both wires from one fleet;
+    the fleet follows the cuda JSON reply."""
+    scn = scenarios.REFERENCE_DEMO
+    grid, starts, tasks, _ = scn.build(seed=0)
+    fleet = ServeFleet(grid, starts, tasks)
+    runners = {}
+    with fused_env(""):
+        for d in (dev, torch.device("cpu")):
+            for wire in ("packed", "json"):
+                svc = solverd.PlanService(grid, capacity_min=16, device=d)
+                svc.defer_fields = False
+                runners[(d.type, wire)] = solverd.TickRunner(svc, grid)
+        enc = pcodec.PackedFleetEncoder(snapshot_every=NO_SNAPSHOT)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        reset_counts()
+        same_dev = same_wire = True
+        try:
+            for seq in range(SERVE_PARITY_TICKS + 1):
+                fleet.transitions()
+                preq = {"type": "plan_request", "seq": seq,
+                        "codec": pcodec.CODEC_NAME,
+                        "caps": [pcodec.CODEC_NAME],
+                        "data": pcodec.encode_b64(
+                            enc.encode_tick(seq, fleet.items()))}
+                jreq = fleet.json_request(seq)
+                r = {k: run.handle(preq if k[1] == "packed" else jreq)
+                     for k, run in runners.items()}
+                same_dev = (same_dev
+                            and r[("cuda", "packed")]["data"]
+                            == r[("cpu", "packed")]["data"]
+                            and r[("cuda", "json")]["moves"]
+                            == r[("cpu", "json")]["moves"])
+                check(same_dev, f"serve_parity: cuda and cpu replies differ "
+                      f"at seq {seq}")
+                rp = pcodec.decode_b64(r[("cuda", "packed")]["data"])
+                w = grid.width
+                packed_plan = {fleet.names[int(l)]: ([int(c) % w, int(c) // w],
+                                                     [int(g) % w, int(g) // w])
+                               for l, c, g in zip(rp.idx, rp.pos, rp.goal)}
+                for m in r[("cuda", "json")]["moves"]:
+                    k = fleet.names.index(m["peer_id"])
+                    p, g = int(fleet.pos[k]), int(fleet.goal[k])
+                    want = packed_plan.get(m["peer_id"],
+                                           ([p % w, p // w], [g % w, g // w]))
+                    same_wire = same_wire and want == (m["next_pos"],
+                                                       m["goal"])
+                check(same_wire, f"serve_parity: packed and JSON plans "
+                      f"differ at seq {seq}")
+                check(fleet.certify(rp.idx, rp.pos),
+                      f"serve_parity: tick {seq} moves are not certified")
+                fleet.adopt(rp.idx, rp.pos, rp.goal)
+        finally:
+            torch.set_num_threads(threads)
+        counts = _counts()
+    out = {"scenario": scn.name, "ticks": SERVE_PARITY_TICKS,
+           "identical_across_devices": same_dev,
+           "packed_equals_json": same_wire,
+           "tasks_completed": fleet.completed,
+           "goal_exchanges_adopted": fleet.exchanges,
+           "main_path_counts": counts}
+    emit("serve_parity", **out)
+    check(counts["sweep"] > 0, "serve_parity: the cuda runners launched no "
+          "sweep_scan")
+    return out
+
+
+def _serve_pair(phase: str, scn, dev, ticks: int, fused: str) -> dict:
+    """``scn`` served unset and under ``MAPD_FUSED=fused``: replies
+    identical, every tick certified, each run through its own kernel."""
+    runs = {}
+    for label, mode in (("unset", ""), (fused, fused)):
+        runs[label] = _serve(scn, dev, ticks, mode)
+        torch.cuda.empty_cache()
+    a, b = runs["unset"], runs[fused]
+    identical = a["datas"] == b["datas"]
+    instance = "single" if fused == "single" else "multi"
+    out = {"scenario": scn.name, "identical": identical,
+           "unset": a["out"], fused: b["out"]}
+    emit(phase, **out)
+    check(identical, f"{phase}: replies differ between unset and "
+          f"MAPD_FUSED={fused}")
+    ua, ub = a["out"]["main_path_counts"], b["out"]["main_path_counts"]
+    check(ua["sweep"] > 0 and ua[instance] == 0,
+          f"{phase} unset: the path did not run sweep_scan alone")
+    check(ub[instance] > 0 and ub["sweep"] == 0,
+          f"{phase} {fused}: the path did not run the {instance} kernel alone")
+    return out
+
+
+def phase_serve_medium(dev: torch.device) -> dict:
+    return _serve_pair("serve_1k_512", scenarios.MEDIUM, dev,
+                       SERVE_MEDIUM_TICKS, "single")
+
+
+def phase_serve_congested(dev: torch.device) -> dict:
+    return _serve_pair("serve_congested_fused", scenarios.CONGESTED, dev,
+                       SERVE_CONGESTED_TICKS, "1")
+
+
+def phase_serve_flagship(dev: torch.device) -> dict:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = _serve(scenarios.FLAGSHIP, dev, SERVE_FLAGSHIP_TICKS,
+                 keep_bytes=False)["out"]
+    out = {**run, "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    emit("serve_flagship", **out)
+    check(run["main_path_counts"]["sweep"] > 0,
+          "serve_flagship: no sweep_scan launch on the path")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_checkpoint(dev: torch.device, tmpdir: str) -> dict:
+    """The ref rung solved on the card: saved at step CHECKPOINT_STEP,
+    loaded into a fresh state and finished, against the uninterrupted
+    solve."""
+    scn = scenarios.REFERENCE_DEMO
+    grid, starts, tasks, cfg = scn.build(seed=0)
+    free = torch.from_numpy(grid.free).to(dev)
+
+    def finish(s, tasks_t):
+        while not hostsync.flag(mapd._finished(cfg, s)):
+            s = mapd.mapd_step(cfg, s, tasks_t, free)
+        return s
+
+    with fused_env(""):
+        ref, tasks_t = mapd.prepare_state(cfg, starts, tasks, free, dev)
+        ref = finish(ref, tasks_t)
+        s, _ = mapd.prepare_state(cfg, starts, tasks, free, dev)
+        for _ in range(CHECKPOINT_STEP):
+            s = mapd.mapd_step(cfg, s, tasks_t, free)
+        path = os.path.join(tmpdir, "ref_step60.npz")
+        checkpoint.save_state(path, s, extra={"step": CHECKPOINT_STEP})
+        del s
+        restored = checkpoint.load_state(
+            path, cfg, expected_num_tasks=int(tasks_t.shape[0]), device=dev)
+        done = finish(restored, tasks_t)
+    makespan = int(ref.t)
+    identical = (int(done.t) == makespan
+                 and bool(torch.equal(done.paths_pos, ref.paths_pos))
+                 and bool(torch.equal(done.paths_state, ref.paths_state))
+                 and bool(torch.equal(done.pos, ref.pos)))
+    out = {"scenario": scn.name, "saved_at_step": CHECKPOINT_STEP,
+           "makespan": makespan, "makespan_resumed": int(done.t),
+           "identical": identical,
+           "archive_bytes": os.path.getsize(path),
+           "extra": int(checkpoint.load_extra(path)["step"])}
+    emit("checkpoint", **out)
+    check(makespan > CHECKPOINT_STEP, "checkpoint: solve ended before the "
+          "save step")
+    check(identical, "checkpoint: the resumed solve differs")
+    return out
+
+
 def _kernel_entry(name: str, replaces: str, tpu_kernel: str, launches: int,
                   rows: list, step_shape: list, card: str, **extra) -> dict:
     """One kernel of the kernels line; ``ms``, ``plain_ms`` and the bound
@@ -676,6 +1065,24 @@ def main() -> int:
     congested = phase_congested(dev)
     flag = phase_flagship(dev)
     single = phase_flagship_single(dev, flag)
+    torch.cuda.empty_cache()
+    phase_serve_parity(dev)
+    serve_medium = phase_serve_medium(dev)
+    serve_congested = phase_serve_congested(dev)
+    serve_flag = phase_serve_flagship(dev)
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmpdir:
+        phase_checkpoint(dev, tmpdir)
+    served = {
+        "sweep_scan": {
+            "1k-512": serve_medium["unset"]["launches_per_tick"]["sweep"],
+            "3k-256-congested":
+                serve_congested["unset"]["launches_per_tick"]["sweep"],
+            "10k-1024-warehouse": serve_flag["launches_per_tick"]["sweep"]},
+        "field_fused_multi": {"3k-256-congested": serve_congested["1"][
+            "launches_per_tick"]["multi"]},
+        "field_fused_single": {"1k-512": serve_medium["single"][
+            "launches_per_tick"]["single"]},
+    }
 
     multi_rows = [r for r in fused if r["mode"] == "multi"]
     single_rows = [r for r in fused if r["mode"] == "single"]
@@ -702,6 +1109,8 @@ def main() -> int:
             single_rows, STEP_SHAPES["single"], card,
             design="cluster-split"),
     ]
+    for k in kernels:
+        k["launches_per_served_tick"] = served[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

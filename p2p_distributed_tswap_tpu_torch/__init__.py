@@ -12,8 +12,15 @@ Package layout
 - ``models``   — the benchmark scenario ladder
 - ``ops``      — BFS distance / direction fields; ``sweep_kernel`` binds the
   hand-written CUDA sweep in ``csrc/sweep_scan.cu``
-- ``solver``   — the TSWAP step, invariants and the offline MAPD loop
-- ``convert``  — carries a solve state across to and from the JAX package
+- ``solver``   — the TSWAP step (with its ``active`` lane mask), invariants,
+  the offline MAPD loop and checkpoints
+- ``runtime``  — ``solverd``, the single-tenant serving daemon behind the
+  C++ manager's ``--solver=tpu``, and copies of the JAX package's
+  JAX-free wire and bus modules (``plan_codec``, ``bus_client``, ...)
+- ``obs``      — copies of the JAX package's observability modules
+  (the port's own registry and tracer)
+- ``convert``  — carries a solve state, or a serving daemon's state, across
+  from the JAX package
 - ``hostsync`` — counted device-to-host reads
 """
 

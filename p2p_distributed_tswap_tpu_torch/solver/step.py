@@ -33,7 +33,7 @@ sync.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -67,10 +67,13 @@ def next_hops(cfg: SolverConfig, dirs: torch.Tensor, slot: torch.Tensor,
     return apply_direction(pos, code, cfg.width)
 
 
-def _occupancy(cfg: SolverConfig, pos: torch.Tensor) -> torch.Tensor:
-    """(HW+1,) int32: agent id at each cell, -1 if empty."""
+def _occupancy(cfg: SolverConfig, pos: torch.Tensor,
+               active: torch.Tensor) -> torch.Tensor:
+    """(HW+1,) int32: agent id at each cell, -1 if empty.  Inactive agents
+    write the padded scratch cell and never occupy the grid."""
     occ = torch.full((cfg.num_cells + 1,), -1, dtype=_I32, device=pos.device)
-    occ[pos] = _arange(cfg.num_agents, pos.device)
+    occ[torch.where(active, pos, cfg.num_cells)] = _arange(cfg.num_agents,
+                                                          pos.device)
     return occ
 
 
@@ -103,24 +106,26 @@ def _apply_pair_swaps(goal, slot, sel, partner, n):
     return goal[p], slot[p]
 
 
-def _hops(cfg: SolverConfig, nh_fn, slot, pos, goal):
+def _hops(cfg: SolverConfig, nh_fn, slot, pos, goal, active):
     """Next hops with Rule 1 (at-goal agents never move) and the
-    goal-adjacency shortcut explicit."""
-    u = nh_fn(slot, pos)
+    goal-adjacency shortcut explicit; an inactive lane's hop is its own
+    cell."""
+    u = torch.where(active, nh_fn(slot, pos), pos)
     w = cfg.width
     mh = (pos % w - goal % w).abs() + (pos // w - goal // w).abs()
-    u = torch.where(mh == 1, goal, u)
+    u = torch.where(active & (mh == 1), goal, u)
     return torch.where(pos == goal, pos, u)
 
 
-def _swap_phase_round(cfg: SolverConfig, pos, goal, slot, pushed, nh_fn, occ):
+def _swap_phase_round(cfg: SolverConfig, pos, goal, slot, pushed, nh_fn, occ,
+                      active):
     n = cfg.num_agents
     dev = pos.device
     idx = _arange(n, dev)
 
     # ---- Rule 3: swap goals with a blocker parked on its own goal ----
     at_goal = pos == goal
-    u = _hops(cfg, nh_fn, slot, pos, goal)
+    u = _hops(cfg, nh_fn, slot, pos, goal, active)
     b, has_move = _blockers(occ, pos, u)
     bc = b.clamp(0, n - 1)
     cand = (has_move & (b >= 0) & at_goal[bc]
@@ -144,7 +149,7 @@ def _swap_phase_round(cfg: SolverConfig, pos, goal, slot, pushed, nh_fn, occ):
 
     # ---- Rule 4: rotate goals around blocking cycles ----
     at_goal = pos == goal
-    u = _hops(cfg, nh_fn, slot, pos, goal)
+    u = _hops(cfg, nh_fn, slot, pos, goal, active)
     b, has_move = _blockers(occ, pos, u)
     # blocking-graph successor; n = absorbing sentinel.  Freshly-pushed
     # agents absorb: no cycle may pass through them this step.
@@ -196,11 +201,12 @@ def _initiated_cycles(cfg: SolverConfig, f, sees):
     return on_cycle_plain & any_ok
 
 
-def _cascade(cfg: SolverConfig, u, b, decided, newpos):
+def _cascade(cfg: SolverConfig, u, b, decided, newpos, active):
     """Movement fixpoint: each round, every undecided agent whose target
-    ``u`` is open -- no decided agent ends there, and its original occupant
-    ``b`` (-1 none) has decided to move away -- claims it, the lowest id
-    winning.  Rounds repeat until nobody moves (one host sync each)."""
+    ``u`` is open -- no decided active agent ends there, and its original
+    occupant ``b`` (-1 none) has decided to move away -- claims it, the
+    lowest id winning.  Rounds repeat until nobody moves (one host sync
+    each)."""
     n = cfg.num_agents
     idx = _arange(n, u.device)
     bc = b.clamp(0, n - 1)
@@ -209,7 +215,7 @@ def _cascade(cfg: SolverConfig, u, b, decided, newpos):
         # final occupancy of decided agents only (padded scratch cell)
         occf = torch.full((cfg.num_cells + 1,), -1, dtype=_I32,
                           device=u.device)
-        occf[torch.where(decided, newpos, cfg.num_cells)] = idx
+        occf[torch.where(decided & active, newpos, cfg.num_cells)] = idx
         orig_gone = (b < 0) | (decided[bc] & (newpos[bc] != u))
         open_cell = (occf[u] == -1) & orig_gone
         claimant = ~decided & open_cell
@@ -223,10 +229,10 @@ def _cascade(cfg: SolverConfig, u, b, decided, newpos):
     return newpos
 
 
-def _movement_phase(cfg: SolverConfig, pos, goal, slot, nh_fn, occ):
+def _movement_phase(cfg: SolverConfig, pos, goal, slot, nh_fn, occ, active):
     n = cfg.num_agents
     idx = _arange(n, pos.device)
-    u = _hops(cfg, nh_fn, slot, pos, goal)
+    u = _hops(cfg, nh_fn, slot, pos, goal, active)
     b, has_move = _blockers(occ, pos, u)
     bc = b.clamp(0, n - 1)
 
@@ -234,11 +240,12 @@ def _movement_phase(cfg: SolverConfig, pos, goal, slot, nh_fn, occ):
     mutual = has_move & (b >= 0) & (u[bc] == pos) & (b != idx)
     newpos = torch.where(mutual, u, pos)
     decided = ~has_move | mutual
-    return _cascade(cfg, u, b, decided, newpos)
+    return _cascade(cfg, u, b, decided, newpos, active)
 
 
 def step_parallel(cfg: SolverConfig, pos: torch.Tensor, goal: torch.Tensor,
-                  slot: torch.Tensor, dirs: torch.Tensor
+                  slot: torch.Tensor, dirs: torch.Tensor,
+                  active: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One TSWAP timestep for all agents.
 
@@ -249,24 +256,42 @@ def step_parallel(cfg: SolverConfig, pos: torch.Tensor, goal: torch.Tensor,
       slot: (N,) int32 agent -> direction-field row (a permutation).
       dirs: (N, ceil(H*W/8)) int32 nibble-packed direction fields
         (ops.distance.pack_directions); row ``slot[i]`` is agent i's field.
+      active: (N,) bool lane mask, ``None`` for all lanes (see
+        :func:`step_with_next_hops`).
 
     Returns:
-      (pos, goal, slot) after the step; ``dirs`` is never modified.
+      (pos, goal, slot) after the step, new tensors (no output is one of
+      the inputs); ``dirs`` is never modified.
     """
     return step_with_next_hops(
-        cfg, pos, goal, slot, lambda sl, po: next_hops(cfg, dirs, sl, po))
+        cfg, pos, goal, slot, lambda sl, po: next_hops(cfg, dirs, sl, po),
+        active)
 
 
-def step_with_next_hops(cfg: SolverConfig, pos, goal, slot, nh_fn):
+def all_lanes(cfg: SolverConfig, device) -> torch.Tensor:
+    """The ``active`` mask of a step in which every lane is an agent."""
+    return torch.ones(cfg.num_agents, dtype=torch.bool, device=device)
+
+
+def step_with_next_hops(cfg: SolverConfig, pos, goal, slot, nh_fn,
+                        active=None):
     """Step core parameterized by the next-hop lookup ``nh_fn(slot, pos)``.
-    Every agent lane is active: the JAX package's ``active`` lane mask
-    serves only its multi-tenant and mesh layers, which are not ported."""
-    occ = _occupancy(cfg, pos)
+
+    ``active`` masks padded or parked lanes out entirely (``None`` = all
+    lanes): an inactive lane never occupies a cell (it writes the scratch
+    cell of the occupancy, so a padded lane at cell 0 leaves cell 0 to the
+    agent standing there), never moves and never enters the Rule-3/4 graph
+    or the cascade.  Nothing selects an inactive lane, so its goal and
+    slot come back unchanged."""
+    if active is None:
+        active = all_lanes(cfg, pos.device)
+    occ = _occupancy(cfg, pos, active)
     pushed = torch.zeros(cfg.num_agents, dtype=torch.bool, device=pos.device)
+    goal, slot = goal.clone(), slot.clone()
     for _ in range(cfg.swap_rounds):
         goal, slot, pushed = _swap_phase_round(cfg, pos, goal, slot, pushed,
-                                               nh_fn, occ)
-    pos = _movement_phase(cfg, pos, goal, slot, nh_fn, occ)
+                                               nh_fn, occ, active)
+    pos = _movement_phase(cfg, pos, goal, slot, nh_fn, occ, active)
     return pos, goal, slot
 
 
@@ -292,7 +317,7 @@ def _view_occupancy(cfg: SolverConfig, vpos, visible):
 
 
 def step_stale(cfg: SolverConfig, pos, goal, slot, nh_fn, vpos, vgoal,
-               visible):
+               visible, active=None):
     """One decentralized TSWAP timestep under stale views: each agent
     decides from its own fresh state and the last-broadcast ``(vpos,
     vgoal)`` view of the others, and goal exchanges are returned as a
@@ -301,7 +326,8 @@ def step_stale(cfg: SolverConfig, pos, goal, slot, nh_fn, vpos, vgoal,
     stays physical (a move is granted only into a cell really free or
     vacated).  The JAX package's ``step_stale`` docstring sets out the
     semantics and the divergences from the reference; this port keeps them
-    bit for bit.
+    bit for bit.  ``active`` is the lane mask of :func:`step_with_next_hops`
+    (``None`` = all lanes).
 
     Returns ``(newpos, pend_from, pend_push)``: ``pend_from`` the
     goal-source permutation (identity where no exchange), ``pend_push`` the
@@ -310,12 +336,14 @@ def step_stale(cfg: SolverConfig, pos, goal, slot, nh_fn, vpos, vgoal,
     n = cfg.num_agents
     dev = pos.device
     idx = _arange(n, dev)
-    occ = _occupancy(cfg, pos)                  # physical truth
-    vocc = _view_occupancy(cfg, vpos, visible)
+    if active is None:
+        active = all_lanes(cfg, dev)
+    occ = _occupancy(cfg, pos, active)          # physical truth
+    vocc = _view_occupancy(cfg, vpos, visible & active)
 
     # own desired next hop: fresh self-knowledge (pos, goal, own field row)
-    u = _hops(cfg, nh_fn, slot, pos, goal)
-    has_move = u != pos
+    u = _hops(cfg, nh_fn, slot, pos, goal, active)
+    has_move = active & (u != pos)
     bv = torch.where(has_move, vocc[u], -1)
     bv = torch.where(bv == idx, -1, bv)         # own stale ghost != blocker
     bvc = bv.clamp(0, n - 1)
@@ -372,14 +400,15 @@ def step_stale(cfg: SolverConfig, pos, goal, slot, nh_fn, vpos, vgoal,
 
     # ---- movement: only believed-free moves are attempted ----
     movers = has_move & ~blocked
-    newpos = _movement_cascade(cfg, pos, u, movers, occ, mutual)
+    newpos = _movement_cascade(cfg, pos, u, movers, occ, active, mutual)
     return newpos, pend_from, pend_push
 
 
-def _movement_cascade(cfg: SolverConfig, pos, u, want, occ, mutual):
+def _movement_cascade(cfg: SolverConfig, pos, u, want, occ, active, mutual):
     """Physical movement arbitration for stale mode: :func:`_movement_phase`
     with an explicit mover mask and no mutual swaps, except the terminal
     mutual swap of a goal-mutual pair (``mutual``, computed by
     :func:`step_stale`)."""
     b = torch.where(want & ~mutual, occ[u], -1)  # true occupant of target
-    return _cascade(cfg, u, b, mutual | ~want, torch.where(mutual, u, pos))
+    return _cascade(cfg, u, b, mutual | ~want, torch.where(mutual, u, pos),
+                    active)

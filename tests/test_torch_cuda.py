@@ -448,3 +448,77 @@ def test_stale_solve_on_cuda_matches_cpu(cuda, monkeypatch, fused):
     assert got[2] == want[2]
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+def _serve_stream(device, free, wire, ticks=30, n=40, seed=6):
+    """A short closed-loop request stream served by the port's
+    ``TickRunner`` on ``device`` (deferred fields off): the fleet adopts
+    each reply's moves and goals, and an agent on its goal takes a random
+    next one.  Returns every reply with ``duration_micros`` dropped."""
+    from p2p_distributed_tswap_tpu_torch.runtime import plan_codec as pc
+    from p2p_distributed_tswap_tpu_torch.runtime import solverd
+
+    grid = Grid(free.copy())
+    w = grid.width
+    svc = solverd.PlanService(grid, capacity_min=8, device=device)
+    svc.defer_fields = False
+    runner = solverd.TickRunner(svc, grid)
+    rng = np.random.default_rng(seed)
+    cells = np.flatnonzero(free.reshape(-1))
+    pick = rng.choice(cells, 2 * n, replace=False)
+    pos, goal = pick[:n].copy(), pick[n:].copy()
+    names = [f"a{k}" for k in range(n)]
+    enc = pc.PackedFleetEncoder(snapshot_every=10)
+    replies = []
+    for seq in range(ticks):
+        arrived = pos == goal
+        goal[arrived] = rng.choice(cells, int(arrived.sum()))
+        items = list(zip(names, pos.tolist(), goal.tolist()))
+        if wire == "packed":
+            req = {"type": "plan_request", "seq": seq, "codec": pc.CODEC_NAME,
+                   "caps": [pc.CODEC_NAME],
+                   "data": pc.encode_b64(enc.encode_tick(seq, items))}
+        else:
+            req = {"type": "plan_request", "seq": seq, "agents": [
+                {"peer_id": a, "pos": [p % w, p // w],
+                 "goal": [g % w, g // w]} for a, p, g in items]}
+        resp = runner.handle(req)
+        replies.append({k: v for k, v in resp.items()
+                        if k != "duration_micros"})
+        if wire == "packed":
+            rp = pc.decode_b64(resp["data"])
+            pos[rp.idx], goal[rp.idx] = rp.pos, rp.goal
+        else:
+            for m in resp["moves"]:
+                k = names.index(m["peer_id"])
+                pos[k] = m["next_pos"][1] * w + m["next_pos"][0]
+                goal[k] = m["goal"][1] * w + m["goal"][0]
+    return replies
+
+
+@pytest.mark.parametrize("wire", ["packed", "json"])
+@pytest.mark.parametrize("fused", ["", "1", "single"])
+def test_served_stream_on_cuda_matches_cpu(cuda, monkeypatch, wire, fused):
+    free = Grid.warehouse(64, 256).free
+    monkeypatch.setenv("MAPD_FUSED", fused)
+    counts = (sweep_kernel.launches, dict(field_fused.launches))
+    got = _serve_stream(cuda, free, wire)
+    mode = {"1": "multi", "single": "single"}.get(fused)
+    if mode is None:
+        assert sweep_kernel.launches > counts[0]
+    else:
+        assert field_fused.launches[mode] > counts[1][mode]
+        assert sweep_kernel.launches == counts[0]
+    assert got == _serve_stream(torch.device("cpu"), free, wire)
+
+
+def test_warm_builds_the_kernels_and_plans_on_cuda(cuda):
+    from p2p_distributed_tswap_tpu_torch.runtime import solverd
+
+    grid = Grid.warehouse(64, 256)
+    svc = solverd.PlanService(grid, capacity_min=8, device=cuda)
+    assert not svc.defer_fields
+    before = sweep_kernel.launches
+    assert solverd.warm(svc, grid, 12) == 12
+    assert sweep_kernel.launches > before
+    assert svc.dirs.is_cuda and len(svc.goal_rows) == 12

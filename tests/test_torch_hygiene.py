@@ -5,9 +5,16 @@
   CUDA they raise instead of quietly running on the CPU.
 - The CUDA kernels' wrappers refuse what the kernels do not take, CPU
   tensors included.
+- The JAX-free modules the serving path needs are copies of the JAX
+  package's: the same code, the package name rewritten.
+- The daemon refuses the modes it does not serve yet (mesh, multi-tenant,
+  sector planner), and a missing card unless ``--cpu`` is given.
 """
 
+import ast
+import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -52,7 +59,25 @@ MODULES = {
     "p2p_distributed_tswap_tpu_torch.solver.invariants",
     "p2p_distributed_tswap_tpu_torch.solver.mapd",
     "p2p_distributed_tswap_tpu_torch.solver.step",
+    "p2p_distributed_tswap_tpu_torch.solver.checkpoint",
+    "p2p_distributed_tswap_tpu_torch.runtime.solverd",
+    "p2p_distributed_tswap_tpu_torch.runtime.plan_codec",
+    "p2p_distributed_tswap_tpu_torch.runtime.bus_client",
+    "p2p_distributed_tswap_tpu_torch.obs.audit",
+    "p2p_distributed_tswap_tpu_torch.obs.registry",
 }
+
+# Copied from the JAX package: the same code, with the package name
+# rewritten and the JAX package's change-history tags ("ISSUE 10",
+# "PR 9 (dynamic worlds)") dropped from comments and docstrings, as
+# ``copy_of`` does it.
+COPIES = (
+    "obs/__init__.py", "obs/audit.py", "obs/beacon.py", "obs/capture.py",
+    "obs/events.py", "obs/flightrec.py", "obs/heartbeat.py",
+    "obs/registry.py", "obs/trace.py", "runtime/__init__.py",
+    "runtime/bus_client.py", "runtime/busns.py", "runtime/plan_codec.py",
+    "runtime/region.py", "runtime/shardmap.py", "runtime/shmlane.py",
+)
 
 
 def _python(code_or_args, **kw):
@@ -67,7 +92,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     summary, names = out.stdout.splitlines()
     count, bad = summary.split(maxsplit=1)
-    assert int(count) >= 14
+    assert int(count) >= 37
     assert MODULES <= set(names.split())
     assert bad.strip() == "[]", bad
 
@@ -134,3 +159,97 @@ def test_fused_dispatch_takes_the_plain_version_on_cpu():
     want = field_fused.fields_plain(free, goals)
     assert torch.equal(field_fused.single_direction_fields(free, goals), want)
     assert torch.equal(field_fused.multi_direction_fields(free, goals), want)
+
+
+_COPY_RULES = (
+    (r"\bp2p_distributed_tswap_tpu\b", "p2p_distributed_tswap_tpu_torch"),
+    (r'next to the rings \(ISSUE "\n(\s*)"11\) and',
+     r'next to the rings "\n\1"and'),
+    (r"PR \d+ \(([^)]*)\)", r"\1"),
+    (r"the PR \d+ caveat", "the dynamic-world caveat"),
+    (r"\n(\s*)\(ISSUE \d+\)\.  ", r".\n\1"),
+    (r" \(ISSUE \d+(?: satellite| tentpole)?\)", ""),
+    (r"\(ISSUE \d+(?: satellite| tentpole)?, ", "("),
+    (r"\(ISSUE \d+ ", "("),
+    (r", ISSUE \d+", ""),
+)
+
+
+def copy_of(original: str) -> str:
+    """The port's copy of a JAX-free module of the JAX package."""
+    for pattern, repl in _COPY_RULES:
+        original = re.sub(pattern, repl, original)
+    return original
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_jax_free_module_is_a_copy(rel):
+    original = (REPO / "p2p_distributed_tswap_tpu" / rel).read_text()
+    copy = (REPO / "p2p_distributed_tswap_tpu_torch" / rel).read_text()
+    assert copy == copy_of(original)
+    # the same code: only comments, strings and the package name differ
+    assert _code_shape(copy) == _code_shape(original)
+    assert not re.search(r"\bISSUE \d|\bPR \d", copy)
+
+
+def _code_shape(src: str) -> str:
+    """The module's syntax tree with every string constant emptied and the
+    package name folded, so that two modules differing only in comments,
+    docstrings and messages compare equal."""
+    src = re.sub(r"\bp2p_distributed_tswap_tpu(_torch)?\b", "pkg", src)
+    tree = ast.parse(src)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            node.value = ""
+    return ast.dump(tree)
+
+
+def test_port_registry_and_tracer_are_its_own():
+    from p2p_distributed_tswap_tpu_torch.obs import registry as port_reg
+    from p2p_distributed_tswap_tpu.obs import registry as jax_reg
+
+    assert port_reg is not jax_reg
+    assert port_reg.get_registry() is not jax_reg.get_registry()
+
+
+def _solverd(args, env_extra=None, env_drop=()):
+    env = {k: v for k, v in os.environ.items() if k not in env_drop}
+    env.update(env_extra or {})
+    return _python(["-m", "p2p_distributed_tswap_tpu_torch.runtime.solverd",
+                    "--port", "1", *args], env=env)
+
+
+@pytest.mark.parametrize("args,env_extra,item", [
+    (["--mesh", "2"], {}, "item 7"),
+    ([], {"JG_SOLVER_MESH": "2x2"}, "item 7"),
+    (["--tenants", "a,b"], {}, "item 3"),
+    (["--multi-tenant"], {}, "item 3"),
+    ([], {"JG_SECTOR": "1"}, "item 6"),
+], ids=["mesh", "mesh-env", "tenants", "multi-tenant", "sector"])
+def test_daemon_refuses_what_is_not_ported(args, env_extra, item):
+    out = _solverd([*args, "--cpu"], env_extra,
+                   env_drop=("JG_SOLVER_MESH", "JG_SECTOR"))
+    assert out.returncode == 2
+    assert item in out.stderr and "not ported" in out.stderr
+    assert "solverd up" not in out.stdout
+
+
+def test_daemon_without_cuda_refuses_the_cpu(no_cuda):
+    out = _solverd([], env_drop=("JG_SOLVER_MESH", "JG_SECTOR"))
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "--cpu" in out.stderr
+    assert "solverd up" not in out.stdout
+
+
+def test_plan_service_refuses_sector_and_missing_cuda(monkeypatch):
+    from p2p_distributed_tswap_tpu_torch.runtime import solverd
+
+    grid = Grid.from_ascii("\n".join(["." * 6] * 6))
+    monkeypatch.setenv("JG_SECTOR", "1")
+    with pytest.raises(RuntimeError, match="item 6"):
+        solverd.PlanService(grid, device="cpu")
+    monkeypatch.delenv("JG_SECTOR")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            solverd.PlanService(grid)
+    assert solverd.PlanService(grid, device="cpu").defer_fields

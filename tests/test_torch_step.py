@@ -125,3 +125,118 @@ def test_congested_warehouse_steps(radius):
     goal = rng.choice(cells, 90, replace=False)
     traj = _run_both(grid, pos, goal, radius, steps=6)
     assert any((t[0] != pos).any() for t in traj)
+
+
+def _masked_case(seed, n, h=12, w=12):
+    """A padded lane layout as the serving path builds it: random active
+    agents (one of them standing on cell 0) and inactive lanes parked at
+    cell 0 with slot 0 and goal 0."""
+    rng = np.random.default_rng(seed)
+    grid = Grid.random_obstacles(h, w, 0.1, seed=seed)
+    grid.free.reshape(-1)[0] = True
+    cells = np.flatnonzero(grid.free.reshape(-1))
+    cells = cells[cells != 0]
+    active = rng.random(n) < 0.6
+    active[rng.integers(n)] = True
+    k = int(active.sum())
+    pos = np.zeros(n, np.int32)
+    goal = np.zeros(n, np.int32)
+    slot = np.zeros(n, np.int32)
+    pos[active] = rng.choice(cells, k, replace=False)
+    goal[active] = rng.choice(cells, k)
+    pos[np.flatnonzero(active)[0]] = 0  # an agent on the padded lanes' cell
+    slot[active] = np.arange(k)
+    return grid, pos, goal, slot, active
+
+
+def _masked_dirs(grid, goal, active):
+    h, w = grid.free.shape
+    goals = goal[active]
+    fields = jd.direction_fields(jnp.asarray(grid.free),
+                                 jnp.asarray(goals, jnp.int32))
+    dirs_j = jd.pack_directions(fields.reshape(len(goals), h * w))
+    return dirs_j, torch.from_numpy(np.array(dirs_j).view(np.int32))
+
+
+@pytest.mark.parametrize("radius", RADII)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_active_mask_matches_jax(seed, radius):
+    """Random ``active`` masks at ``step_parallel`` and
+    ``step_with_next_hops``: padded lanes at cell 0 never block, move or
+    swap, and every lane equals the JAX package's over several steps."""
+    grid, pos, goal, slot, active = _masked_case(seed, 24)
+    h, w = grid.free.shape
+    kw = dict(height=h, width=w, num_agents=len(pos),
+              visibility_radius=radius)
+    cfg_j, cfg_t = JaxConfig(**kw), SolverConfig(**kw)
+    dirs_j, dirs_t = _masked_dirs(grid, goal, active)
+    act_j, act_t = jnp.asarray(active), torch.from_numpy(active)
+    sj = tuple(jnp.asarray(x) for x in (pos, goal, slot))
+    st = tuple(torch.from_numpy(x.copy()) for x in (pos, goal, slot))
+    hj = jax.jit(lambda p, g, s: jstep.step_with_next_hops(
+        cfg_j, p, g, s, lambda sl, po: jstep.next_hops(cfg_j, dirs_j, sl,
+                                                       po), act_j))
+    free_t = torch.from_numpy(grid.free.copy())
+    k_cfg = SolverConfig(**{**kw, "num_agents": int(active.sum())})
+    for _ in range(4):
+        prev = st
+        sj = _jax_step(cfg_j, *sj, dirs_j, act_j)
+        st = tstep.step_parallel(cfg_t, *st, dirs_t, act_t)
+        ht = tstep.step_with_next_hops(
+            cfg_t, *prev, lambda sl, po: tstep.next_hops(cfg_t, dirs_t, sl,
+                                                         po), act_t)
+        for a, b, c in zip(sj, st, ht):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+            assert torch.equal(b, c)
+        for a, b in zip(hj(*(jnp.asarray(x.numpy()) for x in prev)), st):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        # padded lanes stay parked, untouched, off the grid
+        for a, b in zip(st, prev):
+            np.testing.assert_array_equal(a.numpy()[~active],
+                                          b.numpy()[~active])
+        assert bool(tinv.step_invariants(k_cfg, prev[0][act_t],
+                                         st[0][act_t], free_t))
+        live = st[0].numpy()[active]
+        assert len(np.unique(live)) == len(live)
+    assert (st[0].numpy()[active] != pos[active]).any()
+
+
+def test_step_outputs_never_alias_inputs():
+    """The serving path scatters the next delta into its resident lanes
+    while a step's outputs are still to be read: no output may be an
+    input tensor, at any ``swap_rounds``."""
+    grid, pos, goal, slot, active = _masked_case(3, 16)
+    h, w = grid.free.shape
+    _, dirs_t = _masked_dirs(grid, goal, active)
+    for rounds in (0, 2):
+        cfg = SolverConfig(height=h, width=w, num_agents=len(pos),
+                           swap_rounds=rounds)
+        ins = tuple(torch.from_numpy(x.copy()) for x in (pos, goal, slot))
+        act = torch.from_numpy(active)
+        outs = tstep.step_parallel(cfg, *ins, dirs_t, act)
+        ptrs = {t.data_ptr() for t in (*ins, act, dirs_t)}
+        assert not ptrs & {t.data_ptr() for t in outs}
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_active_mask_in_stale_step_matches_jax(seed):
+    grid, pos, goal, slot, active = _masked_case(seed, 20)
+    h, w = grid.free.shape
+    kw = dict(height=h, width=w, num_agents=len(pos), visibility_radius=5,
+              view_refresh_steps=2, swap_commit_delay=1)
+    cfg_j, cfg_t = JaxConfig(**kw), SolverConfig(**kw)
+    dirs_j, dirs_t = _masked_dirs(grid, goal, active)
+    rng = np.random.default_rng(seed)
+    vis = rng.random(len(pos)) < 0.8
+    want = jstep.step_stale(
+        cfg_j, *map(jnp.asarray, (pos, goal, slot)),
+        lambda sl, po: jstep.next_hops(cfg_j, dirs_j, sl, po),
+        jnp.asarray(pos), jnp.asarray(goal), jnp.asarray(vis),
+        jnp.asarray(active))
+    t = tuple(torch.from_numpy(x.copy()) for x in (pos, goal, slot))
+    got = tstep.step_stale(
+        cfg_t, *t, lambda sl, po: tstep.next_hops(cfg_t, dirs_t, sl, po),
+        t[0], t[1], torch.from_numpy(vis), torch.from_numpy(active))
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    np.testing.assert_array_equal(got[0].numpy()[~active], 0)
