@@ -75,16 +75,38 @@ into the next.  Phases:
 14. serve_flagship — ``10k-1024-warehouse`` served: the snapshot (about
                10k fresh goals swept in chunks of 8 into a 16 384-row
                cache) timed, then 50 delta ticks, numbers as in 12.
-15. checkpoint — the ref rung on ``cuda``: saved at step 60, loaded into a
+15. serve_tenants_parity — multi-tenant serving (``MultiTenantRunner``
+               over ``TenantSlab``, the tenant rows folded into one step)
+               on the ref rung's grid: 3 tenants (seeds 0, 1, 2) on a slab
+               of at most 3, 60 bursts fed to a runner on ``cuda`` and one
+               on ``cpu``.  Mid-stream a fourth namespace arrives while t2
+               is idle (t2 evicted; back later, it is re-admitted with a
+               snapshot resync) and an un-namespaced world toggle blocks a
+               cell.  Publishes identical across the devices, every tick of
+               every tenant certified.
+16. serve_tenants_8x1k_512 — 8 tenants, each the 1k-512 fleet of seed
+               k = 0..7 on the shared 512² grid, served by one runner on
+               ``cuda``: one snapshot burst, then 100 delta bursts, each
+               answered by one super-step over the ``[8, 1024]`` slab.
+               Every tick of every tenant certified; each tenant's reply
+               bytes equal those of a single-tenant ``TickRunner`` on
+               ``cuda`` fed that tenant's stream alone; super-step tick ms
+               p50/p95/max against the sum of the 8 single ticks of the
+               same burst, per-phase ms, host syncs and launches per tick,
+               slab lanes, cache rows and bytes, peak memory, ticks over
+               the 500 ms budget.  Run unset and under
+               ``MAPD_FUSED=single``: replies identical.
+17. checkpoint — the ref rung on ``cuda``: saved at step 60, loaded into a
                fresh state and finished: paths and makespan identical to
                the uninterrupted solve.
-16. kernels — one JSON object describing every kernel of the paths.
-17. the last line: ``{"ok": true, "device": {...}}``.
+18. kernels — one JSON object describing every kernel of the paths.
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 Each path (phase 9 for ``sweep_scan``, 8 for the multi instance, 10 for the
-single instance, and each served run of 12-14 for the kernels it takes) is
+single instance, and each served run of 12-16 for the kernels it takes) is
 driven with every kernel's and the host syncs' counts set to 0 just before
-it and read just after it.
+it and read just after it (in phase 16 around each super-step burst, not
+around the single-tenant runs it is compared with).
 
 The fleet (``ServeFleet``) does with each reply what the C++ centralized
 manager does: it adopts the moves; it adopts returned goals, the task
@@ -144,6 +166,9 @@ SERVE_PARITY_TICKS = 100
 SERVE_MEDIUM_TICKS = 300
 SERVE_CONGESTED_TICKS = 100
 SERVE_FLAGSHIP_TICKS = 50
+TENANT_PARITY_TICKS = 60
+TENANTS = 8
+TENANT_TICKS = 100
 CHECKPOINT_STEP = 60
 NO_SNAPSHOT = 1 << 30  # snapshot_every: one snapshot, then deltas only
 
@@ -977,6 +1002,264 @@ def phase_serve_flagship(dev: torch.device) -> dict:
     return out
 
 
+def _tenant_request(seq: int, fleet: ServeFleet, enc) -> dict:
+    return {"type": "plan_request", "seq": seq,
+            "codec": pcodec.CODEC_NAME, "caps": [pcodec.CODEC_NAME],
+            "data": pcodec.encode_b64(enc.encode_tick(seq, fleet.items()))}
+
+
+def _tenant_runner(grid, dev, publish, **kw):
+    svc = solverd.PlanService(grid, capacity_min=16, device=dev)
+    svc.defer_fields = False
+    slab = solverd.TenantSlab(svc, grid)
+    return solverd.MultiTenantRunner(slab, grid, publish=publish, **kw)
+
+
+def phase_serve_tenants_parity(dev: torch.device) -> dict:
+    """Three tenants of the ref rung on a slab of at most three, one
+    closed-loop fleet each, the same frames to a runner on ``cuda`` and one
+    on ``cpu``; a fourth namespace evicts the idle t2, t2 comes back with a
+    snapshot resync, and an operator-plane world toggle lands mid-stream.
+    The idle threshold is 0, so the least recently active tenant is the
+    one evicted and nothing depends on the clock."""
+    scn = scenarios.REFERENCE_DEMO
+    fleets, encs = {}, {}
+    for k in range(4):
+        grid, starts, tasks, _ = scn.build(seed=k)
+        fleets[f"t{k}"] = ServeFleet(grid, starts, tasks)
+        encs[f"t{k}"] = pcodec.PackedFleetEncoder(snapshot_every=NO_SNAPSHOT)
+    pubs = {"cuda": [], "cpu": []}
+    runners = {}
+    with fused_env(""):
+        for key, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            runners[key] = _tenant_runner(
+                grid, d, lambda t, m, key=key: pubs[key].append((t, m)),
+                max_tenants=3, idle_evict_ms=0.0)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        reset_counts()
+        certified, kinds, seqs = True, [], {ns: 0 for ns in fleets}
+        toggled = None
+        try:
+            for tick in range(TENANT_PARITY_TICKS):
+                asking = ["t0", "t1"]
+                if tick < 20 or tick >= 40:
+                    asking.append("t2")
+                if 25 <= tick < 35:
+                    asking.append("t3")
+                if tick == 30:
+                    taken = {int(p) for f in fleets.values() for p in f.pos}
+                    cells = set(np.flatnonzero(grid.free.reshape(-1)))
+                    for f in fleets.values():
+                        cells -= set(f.tasks.reshape(-1).tolist())
+                    # the free cell nearest the middle, off every task
+                    # and every agent
+                    toggled = min(cells - taken, key=lambda c: (
+                        abs(c // grid.width - grid.height // 2)
+                        + abs(c % grid.width - grid.width // 2), c))
+                    msg = {"type": "world_update", "world_seq": 1,
+                           "toggles": [[int(toggled), 1]]}
+                    for run in runners.values():
+                        run.handle_world(msg)
+                    for f in fleets.values():
+                        f.free[toggled] = False
+                reqs = {}
+                for ns in asking:
+                    fleets[ns].transitions()
+                    seqs[ns] += 1
+                    reqs[ns] = _tenant_request(seqs[ns], fleets[ns],
+                                               encs[ns])
+                n = len(pubs["cpu"])
+                for key, run in runners.items():
+                    ok = [run.ingest(ns, r) for ns, r in reqs.items()]
+                    run.flush_snapshot_requests()
+                    p = run.begin() if any(ok) else None
+                    if p is not None:
+                        run.finish(p)
+                strip = lambda xs: [  # noqa: E731
+                    (t, {k: v for k, v in m.items()
+                         if k != "duration_micros"}) for t, m in xs[n:]]
+                same = strip(pubs["cuda"]) == strip(pubs["cpu"])
+                check(same, f"serve_tenants_parity: cuda and cpu publishes "
+                      f"differ at tick {tick}")
+                for topic, m in pubs["cuda"][n:]:
+                    ns = topic.split(":")[0]
+                    kinds.append((ns, m["type"]))
+                    if m["type"] == "plan_snapshot_request":
+                        encs[ns].request_snapshot()
+                    if m["type"] != "plan_response":
+                        continue
+                    rp = pcodec.decode_b64(m["data"])
+                    ok = fleets[ns].certify(rp.idx, rp.pos)
+                    certified = certified and ok
+                    check(ok, f"serve_tenants_parity: {ns} tick {tick} "
+                          f"moves are not certified")
+                    fleets[ns].adopt(rp.idx, rp.pos, rp.goal)
+        finally:
+            torch.set_num_threads(threads)
+        counts = _counts()
+    answered = {ns: kinds.count((ns, "plan_response")) for ns in fleets}
+    out = {"scenario": scn.name, "tenants": 4, "max_tenants": 3,
+           "ticks": TENANT_PARITY_TICKS, "identical_across_devices": True,
+           "certified": certified, "world_toggle_cell": int(toggled),
+           "evicted": sorted({ns for ns, k in kinds
+                              if k == "tenant_evicted"}),
+           "snapshot_requests": kinds.count(("t2", "plan_snapshot_request")),
+           "replies": answered,
+           "tasks_completed": {ns: f.completed for ns, f in fleets.items()},
+           "main_path_counts": counts}
+    emit("serve_tenants_parity", **out)
+    check(("t2", "tenant_evicted") in kinds, "serve_tenants_parity: the idle "
+          "tenant was not evicted")
+    check(out["snapshot_requests"] >= 1 and kinds[-3:].count(
+        ("t2", "plan_response")) == 1, "serve_tenants_parity: t2 was not "
+          "re-admitted with a snapshot resync")
+    check(counts["sweep"] > 0, "serve_tenants_parity: the cuda runner "
+          "launched no sweep_scan")
+    return out
+
+
+def _serve_tenants(dev: torch.device, fused: str, compare: bool) -> dict:
+    """The 8-tenant 1k-512 stream through one ``MultiTenantRunner`` on
+    ``dev``: a snapshot burst, then TENANT_TICKS delta bursts in which
+    every tenant asks.  With ``compare``, each tenant's stream also goes
+    to its own single-tenant ``TickRunner`` on ``dev`` and every reply
+    must be the same bytes.  Counts are summed over the super-step bursts
+    only."""
+    fleets, encs, singles = [], [], []
+    for k in range(TENANTS):
+        grid, starts, tasks, _ = scenarios.MEDIUM.build(seed=k)
+        fleets.append(ServeFleet(grid, starts, tasks))
+        encs.append(pcodec.PackedFleetEncoder(snapshot_every=NO_SNAPSHOT))
+    names = [f"t{k}" for k in range(TENANTS)]
+    pub = []
+    with fused_env(fused):
+        runner = _tenant_runner(grid, dev, lambda t, m: pub.append((t, m)))
+        svc = runner.slab.service
+        if compare:
+            for _ in range(TENANTS):
+                s = solverd.PlanService(grid, device=dev)
+                s.defer_fields = False
+                singles.append(solverd.TickRunner(s, grid))
+        datas, tick_ms, single_ms, phases = [], [], [], []
+        syncs, launches = [], []
+        total = {k: 0 for k in _counts()}
+        certified = same = True
+        for seq in range(TENANT_TICKS + 1):
+            reqs = []
+            for f, enc in zip(fleets, encs):
+                f.transitions()
+                reqs.append(_tenant_request(seq, f, enc))
+            del pub[:]
+            m0 = svc.cache_misses
+            reset_counts()
+            t0 = time.perf_counter()
+            for ns, r in zip(names, reqs):
+                check(runner.ingest(ns, r), f"tenants: {ns} seq {seq} "
+                      f"was not taken")
+            t1 = time.perf_counter()
+            p = runner.begin()
+            t2 = time.perf_counter()
+            runner.finish(p)
+            t3 = time.perf_counter()
+            c = _counts()
+            for k in total:
+                total[k] += c[k]
+            ms = 1e3 * (t3 - t0)
+            got = dict(pub)
+            check(len(got) == TENANTS, f"tenants: {len(got)} replies at "
+                  f"seq {seq}")
+            burst = []
+            for k, ns in enumerate(names):
+                m = got[f"{ns}:solver"]
+                rp = pcodec.decode_b64(m["data"])
+                check(rp.seq == seq, f"tenants: {ns} reply seq {rp.seq}")
+                ok = fleets[k].certify(rp.idx, rp.pos)
+                certified = certified and ok
+                check(ok, f"tenants: {ns} tick {seq} moves are not "
+                      f"certified")
+                burst.append(m["data"])
+                if compare:
+                    s0 = time.perf_counter()
+                    want = singles[k].handle(reqs[k])
+                    single_ms.append((seq, 1e3 * (time.perf_counter() - s0)))
+                    same = same and want["data"] == m["data"]
+                    check(same, f"tenants: {ns} reply at seq {seq} differs "
+                          f"from its single-tenant reply")
+                fleets[k].adopt(rp.idx, rp.pos, rp.goal)
+            datas.append(burst)
+            if seq == 0:
+                snap = {"snapshot_burst_ms": ms,
+                        "snapshot_fresh_sweeps": svc.cache_misses - m0,
+                        "snapshot_launches": {k: c[k] for k in c}}
+                continue
+            tick_ms.append(ms)
+            phases.append({"decode": 1e3 * (t1 - t0),
+                           "step_dispatch": 1e3 * (t2 - t1),
+                           **runner.last_phase_ms})
+            syncs.append(c["syncs"])
+            launches.append({k: c[k] for k in c if k != "syncs"})
+    sums = {}
+    for seq, ms in single_ms:
+        if seq:
+            sums[seq] = sums.get(seq, 0.0) + ms
+    rows = int(svc.dirs.shape[0])
+    out = {
+        "scenario": scenarios.MEDIUM.name, "tenants": TENANTS,
+        "agents_per_tenant": len(fleets[0].names),
+        "grid": [grid.height, grid.width], "fused_mode": fused or "unset",
+        "delta_ticks": TENANT_TICKS, **snap,
+        "slab": [runner.slab.T_cap, runner.slab.L_cap],
+        "slab_lanes_active": int(runner.slab.h_active.sum()),
+        "tick_ms_p50": _pct(tick_ms, 50), "tick_ms_p95": _pct(tick_ms, 95),
+        "tick_ms_max": max(tick_ms), "tick_ms_mean": float(np.mean(tick_ms)),
+        "phase_ms_median": {k: statistics.median(x[k] for x in phases)
+                            for k in phases[0]},
+        "host_syncs_per_tick": sum(syncs) / TENANT_TICKS,
+        "launches_per_tick": {k: sum(x[k] for x in launches) / TENANT_TICKS
+                              for k in launches[0]},
+        "main_path_counts": total,
+        "cache_rows_used": len(svc.goal_rows), "cache_rows": rows,
+        "cache_bytes": svc.dirs.numel() * svc.dirs.element_size(),
+        "tasks_completed": sum(f.completed for f in fleets),
+        "over_budget_ticks": sum(1 for m in tick_ms
+                                 if m > solverd.TICK_BUDGET_MS),
+        "certified": certified}
+    if compare:
+        out["identical_to_single_tenant"] = same
+        out["single_tenant_sum_ms_p50"] = _pct(list(sums.values()), 50)
+        out["single_tenant_sum_ms_mean"] = float(np.mean(list(
+            sums.values())))
+        out["single_tenant_tick_ms_p50"] = _pct(
+            [ms for seq, ms in single_ms if seq], 50)
+    return {"out": out, "datas": datas}
+
+
+def phase_serve_tenants(dev: torch.device) -> dict:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    a = _serve_tenants(dev, "", compare=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    b = _serve_tenants(dev, "single", compare=False)
+    torch.cuda.empty_cache()
+    identical = a["datas"] == b["datas"]
+    out = {"scenario": f"{TENANTS}x{scenarios.MEDIUM.name}",
+           "identical": identical, "max_memory_allocated": peak,
+           "unset": a["out"], "single": b["out"]}
+    emit("serve_tenants_8x1k_512", **out)
+    check(identical, "serve_tenants_8x1k_512: replies differ between unset "
+          "and MAPD_FUSED=single")
+    ua, ub = a["out"]["main_path_counts"], b["out"]["main_path_counts"]
+    check(ua["sweep"] > 0 and ua["single"] == 0,
+          "serve_tenants_8x1k_512 unset: the path did not run sweep_scan "
+          "alone")
+    check(ub["single"] > 0 and ub["sweep"] == 0,
+          "serve_tenants_8x1k_512 single: the path did not run the single "
+          "kernel alone")
+    return out
+
+
 def phase_checkpoint(dev: torch.device, tmpdir: str) -> dict:
     """The ref rung solved on the card: saved at step CHECKPOINT_STEP,
     loaded into a fresh state and finished, against the uninterrupted
@@ -1070,6 +1353,8 @@ def main() -> int:
     serve_medium = phase_serve_medium(dev)
     serve_congested = phase_serve_congested(dev)
     serve_flag = phase_serve_flagship(dev)
+    phase_serve_tenants_parity(dev)
+    tenants = phase_serve_tenants(dev)
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmpdir:
         phase_checkpoint(dev, tmpdir)
     served = {
@@ -1077,11 +1362,15 @@ def main() -> int:
             "1k-512": serve_medium["unset"]["launches_per_tick"]["sweep"],
             "3k-256-congested":
                 serve_congested["unset"]["launches_per_tick"]["sweep"],
-            "10k-1024-warehouse": serve_flag["launches_per_tick"]["sweep"]},
+            "10k-1024-warehouse": serve_flag["launches_per_tick"]["sweep"],
+            "8x1k-512 tenants":
+                tenants["unset"]["launches_per_tick"]["sweep"]},
         "field_fused_multi": {"3k-256-congested": serve_congested["1"][
             "launches_per_tick"]["multi"]},
-        "field_fused_single": {"1k-512": serve_medium["single"][
-            "launches_per_tick"]["single"]},
+        "field_fused_single": {
+            "1k-512": serve_medium["single"]["launches_per_tick"]["single"],
+            "8x1k-512 tenants":
+                tenants["single"]["launches_per_tick"]["single"]},
     }
 
     multi_rows = [r for r in fused if r["mode"] == "multi"]

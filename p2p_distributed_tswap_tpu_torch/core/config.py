@@ -4,11 +4,11 @@ The reference scatters its knobs across compile-time constants, one CLI flag and
 two env vars (SURVEY §5: TSWAP_RADIUS=15 at src/bin/decentralized/agent.rs:796,
 planning interval 500 ms at src/bin/centralized/manager.rs:567, timestep cap
 2000 at src/algorithm/tswap.rs:167, memory caps, gossipsub tunings, --clean,
-TASK_CSV_PATH/PATH_CSV_PATH).  Here the solver's knobs live in one frozen
-dataclass, ``SolverConfig``: it fixes the shapes and loop bounds of every
-tensor program of the solve.  The port's own copy of the JAX package's
-``core/config.py`` (the host-runtime ``RuntimeConfig`` is not needed by the
-offline solve and is not copied).
+TASK_CSV_PATH/PATH_CSV_PATH).  Here every knob lives in explicit frozen
+dataclasses: ``SolverConfig`` fixes the shapes and loop bounds of every
+tensor program of the solve, and ``RuntimeConfig`` carries the host-runtime
+knobs (the port's ``runtime/fleet.py`` exports it to the C++ binaries).
+The port's own copy of the JAX package's ``core/config.py``.
 """
 
 from __future__ import annotations
@@ -122,3 +122,99 @@ class SolverConfig:
                                   self.view_ttl_steps,
                                   self.swap_commit_delay)
 
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Host-runtime knobs (C++ bus / manager / agents).
+
+    Every field maps to a ``MAPD_*`` env var (and a ``--kebab-case`` CLI
+    flag) read by the C++ binaries via cpp/common/knobs.hpp; precedence is
+    flag > env > reference-parity default.  ``runtime.fleet.Fleet`` accepts a
+    RuntimeConfig and exports it through :meth:`to_env`, so one dataclass
+    configures a whole fleet end-to-end (SURVEY §5 "real config system").
+    """
+
+    # Centralized planning tick (ref 500 ms, src/bin/centralized/manager.rs:567).
+    planning_interval_ms: int = 500
+    # Decentralized per-agent decision cadence (ref src/bin/decentralized/agent.rs:730).
+    decision_interval_ms: int = 500
+    # Periodic state cleanup (ref 30 s, src/bin/centralized/manager.rs:727).
+    cleanup_interval_ms: int = 30_000
+    # Memory caps (ref manager.rs:734,752; decentralized/manager.rs:173;
+    # decentralized/agent.rs:800-804).  The two peer caps are distinct
+    # knobs because they cap different things at different reference
+    # defaults: max_known_peers bounds the centralized manager's
+    # departed-peer memory (ref 1000), max_tracked_peers bounds the
+    # decentralized manager's subscribed-peer set (ref 200).
+    max_tracked_agents: int = 500
+    max_known_peers: int = 1000
+    max_tracked_peers: int = 200
+    max_cached_positions: int = 60
+    max_cached_requests: int = 50
+    # Neighbor-info age-out (ref 10 s, src/bin/decentralized/agent.rs:156-167).
+    neighbor_ttl_ms: int = 10_000
+    # Decentralized visibility radius (ref TSWAP_RADIUS=15,
+    # src/bin/decentralized/agent.rs:796-801).
+    visibility_radius: int = 15
+    # Pending goal-swap / rotation retry window (our coordination layer).
+    swap_timeout_ms: int = 2_000
+    # Centralized agent position heartbeat (ref >=1 s, centralized/agent.rs:285-291).
+    heartbeat_ms: int = 1_000
+    # Managers treat agents/peers unseen for this long as dead: tracking
+    # dropped and (beyond the reference) in-flight tasks re-queued.
+    agent_stale_ms: int = 60_000
+    # Centralized --solver=tpu: plan natively while the solver daemon has
+    # produced no fresh response for this long (fleet must not stall).
+    solver_failover_ms: int = 5_000
+    # Agents retransmit `done` on this cadence until the manager's done_ack
+    # arrives: a done published into a bus outage is dropped, which would
+    # otherwise strand the manager's busy bookkeeping forever (the
+    # reference simply loses such tasks, decentralized/manager.rs:185-189).
+    done_retry_ms: int = 2_000
+    # Managers re-send an in-flight task when its agent keeps reporting
+    # idle past this grace (the Task publish was dropped in a bus outage).
+    task_resend_ms: int = 5_000
+    # Bus endpoint.
+    bus_host: str = "127.0.0.1"
+    bus_port: int = 7400
+    topic: str = "mapd"
+    # C++ binaries' log verbosity: error | warn | info | debug
+    # (cpp/common/log.hpp; per-decision chatter sits at debug).
+    log_level: str = "info"
+    # CSV auto-save on exit (ref env vars TASK_CSV_PATH / PATH_CSV_PATH,
+    # src/bin/decentralized/manager.rs:48-50).
+    task_csv_path: Optional[str] = None
+    path_csv_path: Optional[str] = None
+
+    def to_env(self) -> dict:
+        """Env-var map consumed by the C++ binaries (cpp/common/knobs.hpp).
+
+        ``bus_port`` is omitted: the fleet passes it per-process as --port
+        (each test fleet picks its own free port).  ``topic`` is likewise a
+        wire-level constant ("mapd") shared with the reference protocol.
+        """
+        env = {
+            "MAPD_BUS_HOST": self.bus_host,
+            "MAPD_PLANNING_INTERVAL_MS": self.planning_interval_ms,
+            "MAPD_DECISION_INTERVAL_MS": self.decision_interval_ms,
+            "MAPD_CLEANUP_INTERVAL_MS": self.cleanup_interval_ms,
+            "MAPD_MAX_TRACKED_AGENTS": self.max_tracked_agents,
+            "MAPD_MAX_KNOWN_PEERS": self.max_known_peers,
+            "MAPD_MAX_TRACKED_PEERS": self.max_tracked_peers,
+            "MAPD_MAX_CACHED_POSITIONS": self.max_cached_positions,
+            "MAPD_MAX_CACHED_REQUESTS": self.max_cached_requests,
+            "MAPD_NEIGHBOR_TTL_MS": self.neighbor_ttl_ms,
+            "MAPD_VISIBILITY_RADIUS": self.visibility_radius,
+            "MAPD_SWAP_TIMEOUT_MS": self.swap_timeout_ms,
+            "MAPD_HEARTBEAT_MS": self.heartbeat_ms,
+            "MAPD_AGENT_STALE_MS": self.agent_stale_ms,
+            "MAPD_SOLVER_FAILOVER_MS": self.solver_failover_ms,
+            "MAPD_DONE_RETRY_MS": self.done_retry_ms,
+            "MAPD_TASK_RESEND_MS": self.task_resend_ms,
+            "MAPD_LOG_LEVEL": self.log_level,
+        }
+        if self.task_csv_path:
+            env["TASK_CSV_PATH"] = self.task_csv_path
+        if self.path_csv_path:
+            env["PATH_CSV_PATH"] = self.path_csv_path
+        return {k: str(v) for k, v in env.items()}

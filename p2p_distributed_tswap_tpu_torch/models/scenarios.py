@@ -113,8 +113,11 @@ FLAGSHIP = Scenario(                # north-star config: 10k agents, 1024^2
     # beside the persistent 5.25 GB of packed fields.
     "10k-1024-warehouse", lambda: Grid.warehouse(1024, 1024), 10_000, 10_000,
     replan_chunk=64)
-# The 4096^2 rungs (EXTREME, EXTREME_LITE*) are not copied yet: they need
-# the chunked host prime and the multi-device layers of later slices.
+# The 4096^2 rungs are not copied yet: EXTREME_LITE and EXTREME_LITE_FULL
+# (512 agents on one device) wait for ROADMAP queue 1 item 10, and EXTREME
+# (100k agents, about 800 GB of packed rows) for item 7, the multi-device
+# layers.  The chunked host prime they use is already here
+# (``solver/mapd.py`` ``prime_fields``).
 
 LADDER = [REFERENCE_DEMO, SMALL, MEDIUM, FLAGSHIP]
 

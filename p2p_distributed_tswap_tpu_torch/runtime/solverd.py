@@ -1,6 +1,6 @@
 """solverd -- the solver daemon behind the centralized manager's
 ``--solver=tpu`` mode, on PyTorch: the port of the JAX package's
-``runtime/solverd.py``, single tenant and single device.
+``runtime/solverd.py``, on a single device.
 
 The C++ centralized manager ships global agent state over bus topic
 "solver" as a plan_request each planning tick; this daemon runs ONE batched
@@ -34,10 +34,17 @@ dispatched plan's baselines, a step returns new tensors only
 (``solver.step.step_parallel``), and the in-place writes of packed field
 rows are ordered after every read of the step by the device stream.
 
+Multi-tenant mode (``--tenants ns,..`` and/or ``--multi-tenant``): many
+namespaced fleets (``JG_BUS_NS``) share one daemon, one device-resident
+``[tenants, lanes]`` slab and one field cache; every tenant that asked in a
+burst is answered by one super-step, the tenant rows folded into one lane
+axis of the step (``solver/step.py``).  Replies are byte-identical to the
+JAX multi-tenant daemon's.  ``--multi-tenant`` also admits tenants that
+announce themselves with ``tenant_hello`` on ``solver.admit``.
+
 Not ported yet, refused loudly rather than served another way: the mesh
-(``--mesh`` / ``JG_SOLVER_MESH``, ROADMAP queue 1 item 7), multi-tenant
-serving (``--tenants`` / ``--multi-tenant``, the next slice of queue 1
-item 3) and the sector planner (``JG_SECTOR=1``, item 6).  A world toggle
+(``--mesh`` / ``JG_SOLVER_MESH``, with or without tenants, ROADMAP queue 1
+item 7) and the sector planner (``JG_SECTOR=1``, item 6).  A world toggle
 repairs a stale cached row by one full recompute, which equals the JAX
 daemon's incremental repair row for row (``field_repair``'s contract, item
 6); only the counters differ (``solverd.field_repair_fallbacks`` counts
@@ -46,6 +53,8 @@ every repair).
 Usage: python -m p2p_distributed_tswap_tpu_torch.runtime.solverd
            [--port 7400] [--map FILE] [--capacity-min 16] [--warm N]
            [--trace] [--cpu] [--solver-topic T] [--audit-ns NS]
+           [--tenants NS,.. | --multi-tenant] [--max-tenants 64]
+           [--tenant-lanes 65536] [--tenant-idle-ms 2000]
 
 It plans on ``cuda`` unless ``--cpu`` is passed, and exits non-zero
 without CUDA.  The kernels are built, and ``--warm N`` sweeps N field rows
@@ -84,6 +93,7 @@ from p2p_distributed_tswap_tpu_torch.ops.distance import (
     pack_directions,
     packed_cells,
 )
+from p2p_distributed_tswap_tpu_torch.runtime import busns
 from p2p_distributed_tswap_tpu_torch.runtime import plan_codec as pcodec
 from p2p_distributed_tswap_tpu_torch.solver.mapd import resolve_device
 from p2p_distributed_tswap_tpu_torch.solver.step import step_parallel
@@ -91,6 +101,11 @@ from p2p_distributed_tswap_tpu_torch.solver.step import step_parallel
 _I32 = torch.int32
 # Spec values of --mesh / JG_SOLVER_MESH that mean one device.
 _SINGLE_DEVICE_MESH = ("", "1", "1x1")
+# Dynamic tenant admission: an un-namespaced orchestrator announces
+# tenants here (tenant_hello -> tenant_welcome).
+ADMIT_TOPIC = "solver.admit"
+# Frames the multi-tenant loop drains behind the first of a burst.
+TENANT_DRAIN_MAX = 256
 
 
 def sector_requested() -> bool:
@@ -1307,17 +1322,890 @@ class TickRunner:
         return snap
 
 
+# ---------------------------------------------------------------------------
+# multi-tenant serving: one super-step for many namespaced fleets
+# ---------------------------------------------------------------------------
+#
+# Each tenant (a whole fleet behind a bus namespace, runtime/busns.py) gets
+# one ROW of a [T_cap, L_cap] device-resident super-batch, pow2-padded on
+# both axes like the single-tenant lane padding.  One step plans EVERY
+# tenant's lanes per tick burst: the rows are folded into one lane axis of
+# T_cap * L_cap agents (``step_parallel(..., tenants=T_cap)``), with one
+# occupancy plane per row, so two tenants' agents can occupy the same cell
+# of their separate worlds without interacting.  The direction-field cache
+# is SHARED across tenants (all of them run the same grid, so tenant B hits
+# the rows tenant A swept), with the refcount pinning counting every
+# tenant's resident goals.
+
+
+class Tenant:
+    """One admitted fleet: its slab row, packed-delta decoder chain and
+    admission bookkeeping."""
+
+    __slots__ = ("ns", "topic", "row", "decoder", "last_req_ms",
+                 "admitted_ms", "resyncs", "snapshot_needed")
+
+    def __init__(self, ns: str, row: int):
+        self.ns = ns
+        self.topic = busns.wire_topic(ns, "solver")
+        self.row = row
+        self.decoder = pcodec.PackedStateDecoder()
+        self.last_req_ms = time.monotonic() * 1000.0
+        self.admitted_ms = self.last_req_ms
+        self.resyncs = 0
+        self.snapshot_needed = False
+
+
+class PendingSuper:
+    """A dispatched but unfetched super-step: its output tensors plus the
+    per-tenant requests (and per-row diff baselines) its replies need.
+    Baselines are captured per REQUESTING row at dispatch time, so a row
+    evicted and reassigned while the step is in flight is never diffed
+    against another tenant's state."""
+
+    __slots__ = ("new_pos", "new_goal", "bases", "reqs", "t0",
+                 "t_disp_end", "lanes")
+
+
+class TenantSlab:
+    """[T_cap, L_cap] device-resident fleet state for many tenants,
+    sharing one :class:`PlanService`'s direction-field cache (dirs rows,
+    goal refcount pins, deferred-field queue).  The service's own flat
+    single-tenant resident state stays untouched: the daemon runs one mode
+    or the other.  Every device write is out of place (a new tensor), so a
+    dispatched step never sees a later delta, and every upload copies the
+    host mirrors."""
+
+    def __init__(self, service: PlanService, grid: Grid,
+                 tenant_lanes: int = 1 << 16):
+        self.service = service
+        self.grid = grid
+        self.tenant_lanes = tenant_lanes  # per-tenant lane budget
+        self.T_cap = 0
+        self.L_cap = 0
+        self.h_pos = np.zeros((0, 0), np.int32)
+        self.h_goal = np.zeros((0, 0), np.int32)
+        self.h_slot = np.zeros((0, 0), np.int32)
+        self.h_active = np.zeros((0, 0), bool)
+        self.d_pos = self.d_goal = self.d_slot = self.d_active = None
+        self.rows_used: set = set()
+        # deferred-field parking, keyed (row, lane): the slab analog of
+        # PlanService.lane_wait/wait_lanes
+        self.lane_wait: Dict[Tuple[int, int], int] = {}
+        self.wait_lanes: Dict[int, set] = {}
+
+    # -- geometry ---------------------------------------------------------
+    def _grow(self, rows: int, lanes: int) -> None:
+        """Ensure capacity for ``rows`` tenant rows x ``lanes`` lanes;
+        pow2 padding on both axes, full re-upload on growth (rare,
+        O(log) times over a fleet's life; deltas never come here)."""
+        cap_t = max(self.T_cap, 1)
+        while cap_t < rows:
+            cap_t *= 2
+        cap_l = max(self.L_cap, self.service.capacity_min)
+        while cap_l < lanes:
+            cap_l *= 2
+        if cap_t <= self.T_cap and cap_l <= self.L_cap and self.T_cap:
+            return
+        grown = np.zeros((cap_t, cap_l), np.int32)
+        grown[:self.h_pos.shape[0], :self.h_pos.shape[1]] = self.h_pos
+        g_goal = np.zeros((cap_t, cap_l), np.int32)
+        g_goal[:self.h_goal.shape[0], :self.h_goal.shape[1]] = self.h_goal
+        g_slot = np.zeros((cap_t, cap_l), np.int32)
+        g_slot[:self.h_slot.shape[0], :self.h_slot.shape[1]] = self.h_slot
+        g_act = np.zeros((cap_t, cap_l), bool)
+        g_act[:self.h_active.shape[0], :self.h_active.shape[1]] = \
+            self.h_active
+        self.h_pos, self.h_goal = grown, g_goal
+        self.h_slot, self.h_active = g_slot, g_act
+        self.T_cap, self.L_cap = cap_t, cap_l
+        self._upload()
+        registry.get_registry().gauge("solverd.slab_lanes", cap_t * cap_l)
+
+    def _upload(self) -> None:
+        """Full host->device resync (growth/admission/eviction: the
+        structural edges; steady-state deltas use the row scatter)."""
+        up = self.service._upload
+        self.d_pos = up(self.h_pos)
+        self.d_goal = up(self.h_goal)
+        self.d_slot = up(self.h_slot)
+        self.d_active = up(self.h_active)
+
+    def alloc_row(self) -> int:
+        row = next((r for r in range(self.T_cap)
+                    if r not in self.rows_used), None)
+        if row is None:
+            row = self.T_cap
+            self._grow(self.T_cap + 1, max(self.L_cap, 1))
+        self.rows_used.add(row)
+        return row
+
+    def free_row(self, row: int) -> None:
+        """Evict a tenant's row: unpin its goals, clear its deferred
+        parking, zero host + device state."""
+        for lane in np.flatnonzero(self.h_active[row]):
+            self.service._ref_goal(int(self.h_goal[row, lane]), -1)
+        for key in [k for k in self.lane_wait if k[0] == row]:
+            g = self.lane_wait.pop(key)
+            s = self.wait_lanes.get(g)
+            if s is not None:
+                s.discard(key)
+                if not s:
+                    del self.wait_lanes[g]
+        self.h_pos[row] = 0
+        self.h_goal[row] = 0
+        self.h_slot[row] = 0
+        self.h_active[row] = False
+        self._row_set(row)
+        self.rows_used.discard(row)
+
+    # -- device writes (out of place) -------------------------------------
+    def _put(self, index, vp, vg, vs, va) -> None:
+        up = self.service._upload
+        self.d_pos = self.d_pos.index_put(index, up(vp))
+        self.d_goal = self.d_goal.index_put(index, up(vg))
+        self.d_slot = self.d_slot.index_put(index, up(vs))
+        self.d_active = self.d_active.index_put(index, up(va))
+
+    def _row_set(self, row: int) -> None:
+        """Device row <- host mirror row (snapshot / eviction)."""
+        if self.d_pos is None:
+            return
+        index = (torch.tensor([row], device=self.service.device),)
+        self._put(index, self.h_pos[row], self.h_goal[row],
+                  self.h_slot[row], self.h_active[row])
+
+    def _scatter_row_lanes(self, row, lanes, vp, vg, vs, va) -> None:
+        """O(churn) device update of one tenant row, pow2-chunk-padded
+        (the 2-D analog of PlanService._scatter_lanes; the shared
+        _pad_pow2_chunk keeps the padding invariant identical)."""
+        m = len(lanes)
+        lanes, vp, vg, vs, va = _pad_pow2_chunk(
+            PlanService.SCATTER_CHUNK_MIN, lanes, vp, vg, vs, va)
+        li = torch.from_numpy(lanes.astype(np.int64)).to(self.service.device)
+        self._put((torch.full_like(li, row), li), vp, vg, vs, va)
+        registry.get_registry().count("solverd.resident_scatter_lanes", m)
+
+    # -- deferred fields (slab flavor) ------------------------------------
+    def _unwait(self, row: int, lane: int) -> None:
+        g = self.lane_wait.pop((row, lane), None)
+        if g is not None:
+            s = self.wait_lanes.get(g)
+            if s is not None:
+                s.discard((row, lane))
+                if not s:
+                    del self.wait_lanes[g]
+
+    def _slot_of(self, row: int, lane: int, goal: int) -> int:
+        """Field row for a lane's goal; a missing row parks the lane on
+        the shared STAY row and front-queues the sweep (a waiting agent
+        outranks speculative prefetch).  Stale rows (world toggle since
+        their sweep) queue a repair, like the flat path."""
+        svc = self.service
+        self._unwait(row, lane)
+        r = svc.goal_rows.get(goal)
+        if r is not None:
+            if svc._is_stale(goal):
+                svc._queue_goal(goal, "repair")
+            return r
+        self.lane_wait[(row, lane)] = goal
+        self.wait_lanes.setdefault(goal, set()).add((row, lane))
+        svc._queue_goal(goal, "fresh_goal", front=True)
+        return svc._stay_row()
+
+    def _ensure_rows_or_defer(self, goals: List[int]) -> None:
+        svc = self.service
+        misses = svc._count_cache(goals)
+        if svc.defer_fields:
+            return
+        if misses:
+            registry.get_registry().count("solverd.field_sweeps", misses,
+                                          cause="fresh_goal")
+        with trace.span("solverd.field_sweep", fresh_goals=misses,
+                        parent="solverd.tick"):
+            svc._ensure_fields(goals, min_rows=len(svc.goal_ref))
+
+    def process_field_queue(self, max_goals: Optional[int] = None) -> int:
+        """Idle-window sweep of queued goal fields + repair of slab lanes
+        parked on the STAY row (the multi-tenant analog of
+        PlanService.process_field_queue; popping, ageing promotion and
+        per-cause counting are the SHARED service helpers)."""
+        svc = self.service
+        if not svc.field_queue:
+            return 0
+        budget = max_goals or PlanService.FIELD_CHUNK
+        popped_entries = svc._pop_field_queue(budget)
+        svc._sweep_popped(popped_entries)
+        popped = [g for g, _ in popped_entries]
+        by_row: Dict[int, List[Tuple[int, int]]] = {}
+        for g in popped:
+            for key in sorted(self.wait_lanes.pop(g, ())):
+                row, lane = key
+                if self.lane_wait.get(key) == g \
+                        and self.h_active[row, lane] \
+                        and int(self.h_goal[row, lane]) == g:
+                    del self.lane_wait[key]
+                    by_row.setdefault(row, []).append(
+                        (lane, svc.goal_rows[g]))
+                else:
+                    self.lane_wait.pop(key, None)
+        for row, pairs in by_row.items():
+            la = np.asarray([p[0] for p in pairs], np.int32)
+            vs = np.asarray([p[1] for p in pairs], np.int32)
+            self.h_slot[row, la] = vs
+            self._scatter_row_lanes(row, la, self.h_pos[row, la].copy(),
+                                    self.h_goal[row, la].copy(), vs,
+                                    self.h_active[row, la].copy())
+        return len(popped)
+
+    # -- state application ------------------------------------------------
+    def apply(self, row: int, upd: "pcodec.DecodedUpdate") -> int:
+        """Fold one decoded snapshot/delta into tenant ``row``'s slab
+        slice (the multi-tenant port of PlanService.resident_apply);
+        returns lanes written."""
+        svc = self.service
+        reg = registry.get_registry()
+        if upd.is_snapshot:
+            lanes = upd.idx.astype(np.int64)
+            top = int(lanes.max()) + 1 if lanes.size else 1
+            self._grow(max(len(self.rows_used), row + 1), top)
+            for lane in np.flatnonzero(self.h_active[row]):
+                svc._ref_goal(int(self.h_goal[row, lane]), -1)
+            for key in [k for k in self.lane_wait if k[0] == row]:
+                self._unwait(*key)
+            self.h_active[row] = False
+            self.h_pos[row] = 0
+            self.h_goal[row] = 0
+            self.h_slot[row] = 0
+            goals = [int(g) for g in upd.goal]
+            for g in goals:
+                svc._ref_goal(g, +1)
+            self._ensure_rows_or_defer(goals)
+            self.h_pos[row, lanes] = upd.pos
+            self.h_goal[row, lanes] = upd.goal
+            self.h_slot[row, lanes] = np.fromiter(
+                (self._slot_of(row, int(l), g)
+                 for l, g in zip(lanes, goals)),
+                np.int32, len(goals))
+            self.h_active[row, lanes] = True
+            self._row_set(row)  # a snapshot IS the O(fleet) row resync
+            reg.count("solverd.snapshots_applied")
+            return int(lanes.size)
+        # delta: one final value per lane, last write wins (a lane can be
+        # vacated AND re-assigned in the same packet)
+        final: Dict[int, Optional[Tuple[int, int]]] = {}
+        for lane in upd.removed:
+            final[int(lane)] = None
+        for lane, p, g in zip(upd.idx, upd.pos, upd.goal):
+            final[int(lane)] = (int(p), int(g))
+        if not final:
+            return 0
+        self._grow(max(len(self.rows_used), row + 1), max(final) + 1)
+        goals = []
+        for lane, v in final.items():
+            if self.h_active[row, lane]:
+                svc._ref_goal(int(self.h_goal[row, lane]), -1)
+            if v is not None:
+                svc._ref_goal(v[1], +1)
+                goals.append(v[1])
+        self._ensure_rows_or_defer(goals)
+        m = len(final)
+        lanes = np.fromiter(final.keys(), np.int32, m)
+        vp = np.zeros(m, np.int32)
+        vg = np.zeros(m, np.int32)
+        vs = np.zeros(m, np.int32)
+        va = np.zeros(m, bool)
+        for k, (lane, v) in enumerate(final.items()):
+            if v is None:
+                self._unwait(row, lane)
+                continue
+            vp[k], vg[k] = v
+            vs[k] = self._slot_of(row, lane, v[1])
+            va[k] = True
+        self.h_pos[row, lanes] = vp
+        self.h_goal[row, lanes] = vg
+        self.h_slot[row, lanes] = vs
+        self.h_active[row, lanes] = va
+        self._scatter_row_lanes(row, lanes, vp, vg, vs, va)
+        return m
+
+    # -- planning ---------------------------------------------------------
+    def dispatch(self, reqs: Dict[str, dict],
+                 rows: Dict[str, int]) -> Optional[PendingSuper]:
+        """One folded device step over the WHOLE slab (every admitted
+        tenant's lanes, responders and idlers alike: the step is
+        stateless w.r.t. resident pos, so stepping a tenant without a
+        pending request costs only masked compute); ``reqs`` maps tenant
+        ns -> its ingested request, ``rows`` its slab row (the rows that
+        get responses).  The step's outputs are never written back into
+        the slab: the next delta carries the positions the fleet
+        adopted."""
+        n = int(self.h_active.sum())
+        if n == 0 or not reqs:
+            return None
+        t0 = time.perf_counter()
+        with trace.span("solverd.step_dispatch", capacity=self.L_cap,
+                        tenants=len(self.rows_used),
+                        parent="solverd.tick"):
+            shape = (self.T_cap, self.L_cap)
+            cfg = SolverConfig(height=self.grid.height,
+                               width=self.grid.width,
+                               num_agents=self.T_cap * self.L_cap)
+            new_pos, new_goal, _ = step_parallel(
+                cfg, self.d_pos.reshape(-1), self.d_goal.reshape(-1),
+                self.d_slot.reshape(-1), self.service.dirs,
+                self.d_active.reshape(-1), tenants=self.T_cap)
+        p = PendingSuper()
+        p.new_pos = new_pos.reshape(shape)
+        p.new_goal = new_goal.reshape(shape)
+        p.bases = {ns: (row, self.h_pos[row].copy(),
+                        self.h_goal[row].copy(),
+                        self.h_active[row].copy())
+                   for ns, row in rows.items()}
+        p.reqs = reqs
+        p.lanes = n
+        p.t0 = t0
+        p.t_disp_end = time.perf_counter()
+        reg = registry.get_registry()
+        reg.gauge("solverd.superbatch_tenants", len(reqs))
+        reg.gauge("solverd.superbatch_lanes", n)
+        return p
+
+    def fetch(self, p: PendingSuper) -> Tuple[np.ndarray, np.ndarray]:
+        """Block on the super-step outputs; per-tenant diffs are cut by
+        the runner against the dispatch-time baselines."""
+        with trace.span("solverd.device_sync", parent="solverd.tick"):
+            return p.new_pos.cpu().numpy(), p.new_goal.cpu().numpy()
+
+
+class MultiTenantRunner:
+    """Admission, ingest and response encoding for the tenant slab.
+
+    The daemon loop feeds it raw bus frames (wire topics: this runner and
+    the slab are the only tenant-AWARE layer; managers and agents run
+    unmodified behind their namespaces).  ``publish`` abstracts the bus so
+    tests can drive the runner against a list."""
+
+    def __init__(self, slab: TenantSlab, grid: Grid,
+                 publish, max_tenants: int = 64,
+                 idle_evict_ms: float = 2000.0,
+                 heartbeat: Optional[HeartbeatWriter] = None,
+                 budget_ms: float = TICK_BUDGET_MS):
+        self.slab = slab
+        self.grid = grid
+        self.publish = publish
+        self.max_tenants = max_tenants
+        self.idle_evict_ms = idle_evict_ms
+        self.heartbeat = heartbeat
+        self.budget_ms = budget_ms
+        self.tenants: Dict[str, Tenant] = {}
+        self.pending_reqs: Dict[str, dict] = {}
+        self.registry = registry.get_registry()
+        self.ticks = 0
+        self.dropped_total = 0
+        # the last finished super-step's ms: dispatch, device sync, encode
+        self.last_phase_ms: Dict[str, float] = {}
+
+    MAX_LANES = TickRunner.MAX_LANES
+
+    # -- admission / eviction --------------------------------------------
+    def ensure_tenant(self, ns: str) -> Optional[Tenant]:
+        t = self.tenants.get(ns)
+        if t is not None:
+            return t
+        if len(self.tenants) >= self.max_tenants:
+            victim = self._evictable()
+            if victim is None:
+                # everyone is actively planning: refuse rather than
+                # thrash (the caller's requests drop until a slot idles)
+                self.registry.count("solverd.tenant_admission_rejected")
+                return None
+            self.evict(victim, reason="lru")
+        t = Tenant(ns, self.slab.alloc_row())
+        self.tenants[ns] = t
+        self.registry.count("solverd.tenant_admissions")
+        self.registry.gauge("solverd.tenants", len(self.tenants))
+        print(f"🏷️  tenant {ns or '<default>'} admitted "
+              f"(row {t.row}, {len(self.tenants)} resident)", flush=True)
+        return t
+
+    def _evictable(self) -> Optional[Tenant]:
+        """The least-recently-active tenant idle past the threshold."""
+        now_ms = time.monotonic() * 1000.0
+        idle = [t for t in self.tenants.values()
+                if now_ms - t.last_req_ms >= self.idle_evict_ms]
+        if not idle:
+            return None
+        return min(idle, key=lambda t: t.last_req_ms)
+
+    def evict(self, t: Tenant, reason: str = "manual") -> None:
+        """Release a tenant's device memory; its bus subscription stays,
+        and the next plan_request re-admits it with a fresh decoder, whose
+        seq gap triggers the plan_snapshot_request resync, so the manager
+        (the system of record) rebuilds the row losslessly."""
+        self.slab.free_row(t.row)
+        self.tenants.pop(t.ns, None)
+        self.pending_reqs.pop(t.ns, None)
+        self.registry.count("solverd.tenant_evictions")
+        self.registry.gauge("solverd.tenants", len(self.tenants))
+        self.publish(t.topic, {"type": "tenant_evicted", "ns": t.ns,
+                               "reason": reason})
+        print(f"🏷️  tenant {t.ns or '<default>'} evicted ({reason}); "
+              f"re-admission will snapshot-resync", flush=True)
+
+    # -- ingest -----------------------------------------------------------
+    def _packet_sane(self, pkt) -> bool:
+        for a in (pkt.idx, pkt.named_idx, pkt.removed):
+            if a.size and (int(a.min()) < 0
+                           or int(a.max()) >= min(self.MAX_LANES,
+                                                  self.slab.tenant_lanes)):
+                return False
+        n_cells = self.grid.num_cells
+        for a in (pkt.pos, pkt.goal):
+            if a.size and (int(a.min()) < 0 or int(a.max()) >= n_cells):
+                return False
+        return True
+
+    def ingest(self, ns: str, data: dict, stale: bool = False) -> bool:
+        """Decode one tenant's plan_request into its slab row.  Packed
+        deltas are order-sensitive, so superseded requests still apply
+        (``stale=True``); returns True when ``data`` became the tenant's
+        request to answer this burst."""
+        if data.get("codec") != pcodec.CODEC_NAME:
+            # multi-tenant mode is packed-wire only, and an unservable
+            # request must not ADMIT (a legacy-JSON manager would evict a
+            # healthy idle tenant just to squat a slab row forever)
+            self.registry.count("solverd.json_requests_ignored")
+            return False
+        t = self.ensure_tenant(ns)
+        if t is None:
+            return False
+        t.last_req_ms = time.monotonic() * 1000.0
+        t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
+        with trace.span("solverd.request_decode", parent="solverd.tick"):
+            try:
+                raw = base64.b64decode(data.get("data") or "",
+                                       validate=True)
+                pkt = pcodec.decode(raw)
+            except (ValueError, pcodec.CodecError):
+                self.registry.count("solverd.bad_packets")
+                return False
+            if pkt.trace is not None:
+                obs_events.emit("plan.request", trace_id=pkt.trace.trace_id,
+                                hop=pkt.trace.hop,
+                                send_ms=pkt.trace.send_ms,
+                                seq=data.get("seq"))
+            if not self._packet_sane(pkt):
+                self.registry.count("solverd.bad_packets")
+                return False
+            self.registry.count("solverd.decode_bytes", len(raw))
+            if pkt.kind == pcodec.KIND_DELTA:
+                self.registry.count("solverd.delta_agents",
+                                    int(pkt.idx.size))
+            try:
+                upd = t.decoder.apply(pkt)
+            except pcodec.SeqGapError as e:
+                t.snapshot_needed = True
+                self.registry.count("solverd.seq_gaps")
+                trace.instant("solverd.seq_gap", have=e.have_seq,
+                              base=e.base_seq, tenant=ns)
+                return False
+            self.slab.apply(t.row, upd)
+            self.slab.service.prefetch_goals(data.get("hints") or [])
+        if stale:
+            return False
+        caps = data.get("caps") or []
+        req = {"ns": ns, "seq": data.get("seq"), "caps": caps,
+               "t0": t0, "t0_ns": t0_ns, "tc": pkt.trace,
+               "t_dec": time.perf_counter()}
+        if pcodec.CODEC_NAME not in caps:
+            req["names"] = list(t.decoder.names)
+        self.pending_reqs[ns] = req
+        return True
+
+    def handle_world(self, data: dict) -> int:
+        """Operator-plane dynamic-world toggle: the shared grid mutates for
+        every tenant at once."""
+        return apply_world_frame(self.slab.service, self.registry, data)
+
+    def flush_snapshot_requests(self) -> None:
+        for t in self.tenants.values():
+            if t.snapshot_needed:
+                t.snapshot_needed = False
+                t.resyncs += 1
+                self.registry.count("solverd.tenant_resyncs")
+                self.publish(t.topic, {
+                    "type": "plan_snapshot_request",
+                    "have_seq": (t.decoder.last_seq
+                                 if t.decoder.last_seq is not None
+                                 else -1)})
+
+    # -- plan / respond ---------------------------------------------------
+    def begin(self) -> Optional[PendingSuper]:
+        reqs, self.pending_reqs = self.pending_reqs, {}
+        if not reqs:
+            return None
+        rows = {ns: self.tenants[ns].row for ns in reqs
+                if ns in self.tenants}
+        return self.slab.dispatch(reqs, rows)
+
+    def finish(self, p: PendingSuper, pipelined: bool = False) -> None:
+        """Fetch the super-step and publish one response per requesting
+        tenant (packed when its request advertised the codec, legacy JSON
+        otherwise)."""
+        t_fetch0 = time.perf_counter()
+        overlap_ms = 1000.0 * (t_fetch0 - p.t_disp_end)
+        self.registry.observe("solverd.pipeline_overlap_ms", overlap_ms)
+        new_pos, new_goal = self.slab.fetch(p)
+        t_fetched = time.perf_counter()
+        w = self.grid.width
+        for ns, r in p.reqs.items():
+            t = self.tenants.get(ns)
+            base = p.bases.get(ns)
+            if t is None or base is None or t.row != base[0]:
+                continue  # evicted (or evicted+re-admitted) in flight
+            row, base_pos, base_goal, base_active = base
+            changed = base_active \
+                & ((new_pos[row] != base_pos)
+                   | (new_goal[row] != base_goal))
+            lanes = np.flatnonzero(changed).astype(np.int32)
+            npos = new_pos[row][lanes].astype(np.int32)
+            ngoal = new_goal[row][lanes].astype(np.int32)
+            us = int(1e6 * ((p.t_disp_end - r["t0"])
+                            + (t_fetched - t_fetch0)))
+            resp_tc = None
+            if r.get("tc") is not None and obs_events.ctx_enabled():
+                resp_tc = r["tc"].next_hop()
+            with trace.span("solverd.reply_encode", parent="solverd.tick"):
+                if pcodec.CODEC_NAME in r["caps"]:
+                    rpkt = pcodec.encode_response(r["seq"], lanes, npos,
+                                                  ngoal)
+                    rpkt.trace = resp_tc
+                    resp = {"type": "plan_response", "seq": r["seq"],
+                            "codec": pcodec.CODEC_NAME,
+                            "duration_micros": us,
+                            "data": pcodec.encode_b64(rpkt)}
+                else:
+                    names = r.get("names") or []
+                    moves = []
+                    for lane, c, g in zip(lanes, npos, ngoal):
+                        pid = names[int(lane)] \
+                            if 0 <= int(lane) < len(names) else None
+                        if pid is None:
+                            continue
+                        moves.append({"peer_id": pid,
+                                      "next_pos": [int(c) % w, int(c) // w],
+                                      "goal": [int(g) % w, int(g) // w]})
+                    resp = {"type": "plan_response", "seq": r["seq"],
+                            "duration_micros": us, "moves": moves}
+                    if resp_tc is not None:
+                        resp["tc"] = [resp_tc.trace_id, resp_tc.hop,
+                                      resp_tc.send_ms]
+            self.publish(t.topic, resp)
+        t_end = time.perf_counter()
+        self.last_phase_ms = {
+            "step_dispatch": 1000.0 * (p.t_disp_end - p.t0),
+            "device_sync": 1000.0 * (t_fetched - t_fetch0),
+            "encode": 1000.0 * (t_end - t_fetched)}
+        self.ticks += 1
+        first = min(r["t0"] for r in p.reqs.values())
+        total_ms = 1000.0 * (time.perf_counter() - first)
+        trace.complete("solverd.tick",
+                       min(r["t0_ns"] for r in p.reqs.values()),
+                       time.perf_counter_ns()
+                       - min(r["t0_ns"] for r in p.reqs.values()),
+                       tenants=len(p.reqs), pipelined=pipelined)
+        self.registry.observe("tick_ms", total_ms)
+        if total_ms > self.budget_ms:
+            self.registry.count("tick.over_budget")
+        self.registry.gauge("tick.agents", p.lanes)
+        if self.heartbeat is not None:
+            self.heartbeat.beat(
+                self.ticks, p.lanes,
+                {"total": total_ms,
+                 "overlap": overlap_ms if pipelined else 0.0},
+                counters=trace.snapshot()["counters"])
+            trace.flush()
+
+    def stats(self) -> dict:
+        snap = trace.snapshot()
+        svc = self.slab.service
+        snap["service"] = {
+            "mode": "multi_tenant",
+            "ticks": self.ticks,
+            "dropped_stale": self.dropped_total,
+            "tenants": {
+                (t.ns or "<default>"): {
+                    "row": t.row,
+                    "lanes": int(self.slab.h_active[t.row].sum())
+                    if t.row < self.slab.T_cap else 0,
+                    "last_seq": t.decoder.last_seq,
+                    "resyncs": t.resyncs,
+                    "idle_ms": round(time.monotonic() * 1000.0
+                                     - t.last_req_ms, 1),
+                } for t in self.tenants.values()},
+            "slab": {"t_cap": self.slab.T_cap, "l_cap": self.slab.L_cap,
+                     "lanes": int(self.slab.h_active.sum())},
+            "cached_fields": len(svc.goal_rows),
+            "max_fields": svc.max_fields,
+            "cache_hits": svc.cache_hits,
+            "cache_misses": svc.cache_misses,
+            "defer_fields": svc.defer_fields,
+            "field_queue": len(svc.field_queue),
+            "deferred_lanes": len(self.slab.lane_wait),
+            "dynamic_world": svc.dynamic_world,
+            "world_seq": svc.world_seq,
+            "mesh": None,
+        }
+        snap["network"] = self.registry.network_summary()
+        return snap
+
+
+def audit_entries_tenant(slab: TenantSlab, tenant: Tenant
+                         ) -> Tuple[list, dict]:
+    """One tenant's audit-beacon body: its slab-row host-mirror and
+    device-pull digests at ITS decoder seq (the manager behind this
+    tenant's namespace publishes the matching shadow ring)."""
+    svc = slab.service
+    row = tenant.row
+    seq = (tenant.decoder.last_seq
+           if tenant.decoder.last_seq is not None else 0)
+    epoch = svc.world_seq
+    act = np.flatnonzero(slab.h_active[row])
+    d, n = obs_audit.lane_digest(act, slab.h_pos[row][act],
+                                 slab.h_goal[row][act])
+    entries = [obs_audit.AuditEntry(obs_audit.SEC_MIRROR, n, seq,
+                                    epoch, d)]
+    if slab.d_pos is not None and row < slab.T_cap:
+        dmask = slab.d_active[row].cpu().numpy()
+        dact = np.flatnonzero(dmask)
+        dd, dn = obs_audit.lane_digest(dact,
+                                       slab.d_pos[row].cpu().numpy()[dact],
+                                       slab.d_goal[row].cpu().numpy()[dact])
+        entries.append(obs_audit.AuditEntry(obs_audit.SEC_DEVICE, dn, seq,
+                                            epoch, dd))
+    extra = {"dynamic_world": bool(svc.dynamic_world),
+             "epoch": epoch, "seq": seq}
+    return entries, extra
+
+
+def tenant_audit_peer(ns: str) -> str:
+    """The per-tenant audit peer id: one daemon publishes one digest
+    stream per tenant, and the joiner keys streams by peer."""
+    return f"solverd[{ns or 'default'}]"
+
+
+def multi_tenant_loop(bus, runner: MultiTenantRunner, slab: TenantSlab,
+                      beacon, stats_requested: dict, dump_stats) -> None:
+    """The multi-tenant daemon loop: tenant-tagged ingest (wire topics
+    carry the namespace), one pipelined folded super-step per request
+    burst, per-tenant responses, dynamic admission via ``solver.admit``."""
+
+    def subscribe_tenant(ns: str) -> None:
+        bus.subscribe(busns.wire_topic(ns, "solver"), raw=True)
+
+    svc = slab.service
+    pending: Optional[PendingSuper] = None
+
+    # audit plane: one digest stream PER TENANT (each joins against its own
+    # namespaced manager's shadow ring) plus a shared field-cache stream,
+    # all on the raw operator topic
+    audit_on = obs_audit.enabled()
+    audit_interval = obs_audit.interval_s()
+    audit_state = {"last": 0.0, "effective": audit_interval}
+
+    def audit_beat() -> None:
+        if not audit_on:
+            return
+        now = time.monotonic()
+        if audit_state["last"] \
+                and now - audit_state["last"] < audit_state["effective"]:
+            return
+        audit_state["last"] = now
+        t0 = time.perf_counter()
+        ts_ms = time.time_ns() // 1_000_000
+        payloads = []
+        for t in list(runner.tenants.values()):
+            entries, extra = audit_entries_tenant(slab, t)
+            payloads.append({
+                "type": "audit_beacon",
+                "peer_id": tenant_audit_peer(t.ns),
+                "proc": "solverd", "ns": t.ns, "pid": os.getpid(),
+                "ts_ms": ts_ms,
+                "caps": [obs_audit.AUDIT_CAP],
+                "data": obs_audit.encode_audit_b64(entries),
+                **extra})
+        fresh = [g for g in svc.goal_rows
+                 if g != -1 and not svc._is_stale(g)]
+        fd, fn = obs_audit.cells_digest(fresh)
+        payloads.append({
+            "type": "audit_beacon", "peer_id": "solverd",
+            "proc": "solverd", "ns": "", "pid": os.getpid(),
+            "ts_ms": ts_ms,
+            "caps": [obs_audit.AUDIT_CAP],
+            "dynamic_world": bool(svc.dynamic_world),
+            "epoch": svc.world_seq,
+            "data": obs_audit.encode_audit_b64(
+                [obs_audit.AuditEntry(obs_audit.SEC_FIELDS, fn, 0,
+                                      svc.world_seq, fd)])})
+        # self-throttle like AuditBeacon: per-tenant digest bodies re-hash
+        # every slab row, so the cadence stretches when a beat runs long
+        # (audit overhead capped at ~2% of the loop).  Published AFTER the
+        # recompute so every stream advertises the cadence this beat set
+        audit_state["effective"] = max(
+            audit_interval, 50.0 * (time.perf_counter() - t0))
+        for p in payloads:
+            p["interval_s"] = audit_state["effective"]
+            bus.publish(obs_audit.AUDIT_TOPIC, p, raw=True)
+
+    def handle_audit(data: dict) -> None:
+        typ = data.get("type")
+        if typ == "audit_drill_request":
+            tns = data.get("ns") or ""
+            t = runner.tenants.get(tns)
+            if t is None or data.get("target") not in (
+                    "solverd", tenant_audit_peer(tns)):
+                return
+            view = data.get("view") or "mirror"
+            row = t.row
+            if view == "device" and slab.d_pos is not None:
+                mask = slab.d_active[row].cpu().numpy()
+                pos = slab.d_pos[row].cpu().numpy()
+                goal = slab.d_goal[row].cpu().numpy()
+            else:
+                mask, pos, goal = (slab.h_active[row], slab.h_pos[row],
+                                   slab.h_goal[row])
+            act = np.flatnonzero(mask)
+            bus.publish(obs_audit.AUDIT_TOPIC, obs_audit.drill_answer(
+                data, act, pos[act], goal[act], names=t.decoder.names,
+                peer_id=tenant_audit_peer(tns)), raw=True)
+        elif typ == "audit_corrupt":
+            # the sticky corruption hook is a flat-daemon test fixture
+            runner.registry.count("solverd.audit_corrupt_ignored")
+
+    def route(frame) -> Optional[Tuple[str, dict]]:
+        """(tenant ns, plan_request payload) of a frame, handling the
+        control messages inline; None for everything else."""
+        if frame.get("op") != "msg":
+            return None
+        data = frame.get("data") or {}
+        topic = frame.get("topic") or ""
+        ns, logical = busns.split_ns(topic)
+        typ = data.get("type")
+        if logical == obs_audit.AUDIT_TOPIC:
+            # raw operator plane: drill requests resolve a tenant row via
+            # the request's ns field; beacons from other peers are noise
+            if ns == "":
+                handle_audit(data)
+            return None
+        if logical == ADMIT_TOPIC:
+            if typ == "tenant_hello" and isinstance(data.get("ns"), str):
+                try:
+                    hello_ns = busns.validate(data["ns"])
+                except ValueError:
+                    return None
+                subscribe_tenant(hello_ns)
+                if runner.ensure_tenant(hello_ns) is not None:
+                    bus.publish(ADMIT_TOPIC,
+                                {"type": "tenant_welcome", "ns": hello_ns})
+            return None
+        if logical != "solver":
+            return None
+        if typ == "stats_request":
+            # cross-tenant stats enumerate EVERY tenant's namespace and
+            # activity (operator tooling only): answered on the
+            # un-namespaced topic, never into a tenant's namespace
+            if ns == "":
+                bus.publish(topic, {"type": "stats_response",
+                                    **runner.stats()}, raw=True)
+            return None
+        if typ == "flight_dump":
+            if ns != "":
+                return None  # operator tooling, same rule as stats
+            path = flightrec.dump(reason="bus_request")
+            bus.publish(topic, {
+                "type": "flight_dump_response", "proc": "solverd",
+                "peer_id": "solverd", "path": path,
+                "events": len(flightrec.get_recorder())}, raw=True)
+            return None
+        if typ == "world_update":
+            # The grid is SHARED across every tenant's slab row, so only
+            # the UN-NAMESPACED operator plane may mutate it: a single
+            # tenant's manager must not re-shape every other fleet's world
+            if ns == "":
+                runner.handle_world(data)
+            else:
+                runner.registry.count("solverd.world_updates_ignored")
+            return None
+        if typ != "plan_request":
+            return None
+        return ns, data
+
+    while True:
+        frame = bus.recv(timeout=0.002 if pending is not None
+                         else (0.02 if svc.field_queue else 1.0))
+        beacon.maybe_beat()
+        audit_beat()
+        if stats_requested["flag"]:
+            stats_requested["flag"] = False
+            dump_stats()
+        if frame is None:
+            if pending is not None:
+                runner.finish(pending, pipelined=True)
+                pending = None
+            elif svc.field_queue:
+                slab.process_field_queue()
+            continue
+        routed = route(frame)
+        if routed is None:
+            continue
+        # stale drain, PER TENANT: every packed request applies in order,
+        # only the newest per tenant is planned this burst.  BOUNDED: with
+        # many tenants ticking fast the inter-arrival gap can stay under
+        # the drain timeout forever, and an in-flight step's responses
+        # must not be withheld behind an endless drain
+        bursts: Dict[str, List[dict]] = {routed[0]: [routed[1]]}
+        drained = 0
+        while drained < TENANT_DRAIN_MAX:
+            nxt = bus.recv(timeout=0.005)
+            if nxt is None:
+                break
+            drained += 1
+            r = route(nxt)
+            if r is not None:
+                bursts.setdefault(r[0], []).append(r[1])
+        any_ok = False
+        for ns, reqs in bursts.items():
+            for stale_req in reqs[:-1]:
+                runner.ingest(ns, stale_req, stale=True)
+            if runner.ingest(ns, reqs[-1]):
+                any_ok = True
+            dropped = len(reqs) - 1
+            if dropped:
+                runner.dropped_total += dropped
+                trace.count("solverd.dropped_stale", dropped)
+        runner.flush_snapshot_requests()
+        nxt_pending = runner.begin() if any_ok else None
+        if pending is not None:
+            runner.finish(pending, pipelined=True)
+        pending = nxt_pending
+
+
 def refusal(args) -> Optional[str]:
-    """Why the daemon refuses to start with these arguments (or None): the
-    modes that are not ported yet, and a card that is missing."""
+    """Why the daemon refuses to start with these arguments (or None): a
+    custom plan topic in multi-tenant mode (as the JAX daemon refuses it),
+    the modes that are not ported yet, and a card that is missing."""
+    multi_tenant = args.tenants is not None or args.multi_tenant
+    if multi_tenant and args.solver_topic != "solver":
+        # tenant plan wires are namespaced topics; a custom flat topic
+        # would silently split the plane
+        return "--solver-topic is incompatible with multi-tenant mode"
     mesh = (args.mesh if args.mesh is not None
             else os.environ.get("JG_SOLVER_MESH"))
     if (mesh or "").strip().lower() not in _SINGLE_DEVICE_MESH:
         return (f"mesh {mesh!r}: the multi-device planner is not ported "
                 f"yet (ROADMAP queue 1 item 7)")
-    if args.tenants is not None or args.multi_tenant:
-        return ("multi-tenant serving (--tenants / --multi-tenant) is not "
-                "ported yet (ROADMAP queue 1 item 3, the next slice)")
     if sector_requested():
         return ("JG_SECTOR: the sector planner is not ported yet (ROADMAP "
                 "queue 1 item 6)")
@@ -1362,12 +2250,29 @@ def main(argv=None) -> int:
                     help="force span tracing on (equivalent to JG_TRACE=1)")
     ap.add_argument("--cpu", action="store_true",
                     help="plan on the CPU (the default is the card)")
-    # accepted so that they are refused by name, not as unknown flags
+    # accepted so that it is refused by name, not as an unknown flag
     ap.add_argument("--mesh", default=None,
                     help="not ported yet: refused unless unset or 1")
-    ap.add_argument("--tenants", default=None, help="not ported yet")
+    # Multi-tenant mode: serve many namespaced fleets from one
+    # device-resident super-batch.  --tenants pre-subscribes a static
+    # tenant list; --multi-tenant additionally listens on solver.admit for
+    # dynamic tenant_hello admission.  Either flag enables the mode.
+    ap.add_argument("--tenants", default=None,
+                    help="comma list of bus namespaces to serve "
+                         "(JG_BUS_NS values; '' = the un-namespaced "
+                         "default fleet)")
     ap.add_argument("--multi-tenant", action="store_true",
-                    help="not ported yet")
+                    help="dynamic tenant admission via solver.admit")
+    ap.add_argument("--max-tenants", type=int, default=64,
+                    help="device-memory admission budget: tenants beyond "
+                         "this evict the least-recently-active idle "
+                         "tenant (snapshot-resync on re-admission)")
+    ap.add_argument("--tenant-lanes", type=int, default=1 << 16,
+                    help="per-tenant lane budget (requests addressing "
+                         "lanes past it are rejected)")
+    ap.add_argument("--tenant-idle-ms", type=float, default=2000.0,
+                    help="a tenant is eviction-eligible only after this "
+                         "long without a plan_request")
     ap.add_argument("--solver-topic",
                     default=os.environ.get("JG_SOLVER_TOPIC") or "solver",
                     help="plan-wire bus topic (JG_SOLVER_TOPIC)")
@@ -1379,6 +2284,10 @@ def main(argv=None) -> int:
     if why is not None:
         print(f"❌ {why}", file=sys.stderr)
         return 2
+    tenant_list = ([busns.validate(t.strip()) for t in
+                    args.tenants.split(",")] if args.tenants is not None
+                   else [])
+    multi_tenant = bool(tenant_list) or args.multi_tenant
     solver_topic = args.solver_topic
     device = torch.device("cpu" if args.cpu else "cuda")
 
@@ -1398,10 +2307,22 @@ def main(argv=None) -> int:
     # Subscribe before the kernels are built: plan_requests published
     # meanwhile would be lost (the bus does not replay).  The banner below
     # is the readiness signal harnesses wait for.  reconnect=True: a busd
-    # restart must not kill the planning daemon.
+    # restart must not kill the planning daemon.  Multi-tenant solverd IS
+    # the cross-tenant infrastructure: its own client is un-namespaced
+    # whatever JG_BUS_NS the spawning environment exported, and the tenant
+    # plan wires are subscribed as wire topics.
     from p2p_distributed_tswap_tpu_torch.runtime.bus_client import BusClient
-    bus = BusClient(port=args.port, peer_id="solverd", reconnect=True)
-    bus.subscribe(solver_topic)
+    bus = BusClient(port=args.port, peer_id="solverd", reconnect=True,
+                    namespace="" if multi_tenant else None)
+    if multi_tenant:
+        for ns in tenant_list:
+            bus.subscribe(busns.wire_topic(ns, "solver"), raw=True)
+        if args.multi_tenant:
+            bus.subscribe(ADMIT_TOPIC)
+        if "" not in tenant_list:
+            bus.subscribe("solver")  # the un-namespaced default fleet
+    else:
+        bus.subscribe(solver_topic)
     if obs_audit.enabled():
         bus.subscribe(obs_audit.AUDIT_TOPIC, raw=True)
 
@@ -1418,6 +2339,16 @@ def main(argv=None) -> int:
         print(f"🔎 tracing on: {tracer.default_path('trace')} "
               f"(+ heartbeat sidecar)", flush=True)
     runner = TickRunner(service, grid, heartbeat=heartbeat)
+    mt_runner = slab = None
+    if multi_tenant:
+        slab = TenantSlab(service, grid, tenant_lanes=args.tenant_lanes)
+        mt_runner = MultiTenantRunner(
+            slab, grid,
+            publish=lambda topic, data: bus.publish(topic, data, raw=True),
+            max_tenants=args.max_tenants,
+            idle_evict_ms=args.tenant_idle_ms, heartbeat=heartbeat)
+        for ns in tenant_list:
+            mt_runner.ensure_tenant(ns)
 
     http_srv = registry.maybe_serve_http()
     if http_srv is not None:
@@ -1425,7 +2356,7 @@ def main(argv=None) -> int:
               flush=True)
     beacon = MetricsBeacon(bus, proc="solverd")
     audit_beacon = None
-    if obs_audit.enabled():
+    if obs_audit.enabled() and not multi_tenant:
         audit_beacon = obs_audit.AuditBeacon(
             bus, "solverd",
             lambda: audit_entries(
@@ -1441,7 +2372,8 @@ def main(argv=None) -> int:
                   lambda *_: stats_requested.__setitem__("flag", True))
 
     def dump_stats() -> None:
-        print("📈 stats " + json.dumps(runner.stats()), flush=True)
+        print("📈 stats " + json.dumps((mt_runner or runner).stats()),
+              flush=True)
         trace.flush()
 
     def answer_stats() -> None:
@@ -1450,11 +2382,19 @@ def main(argv=None) -> int:
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    trace.instant("solverd.up", port=args.port, multi_tenant=False,
+    trace.instant("solverd.up", port=args.port, multi_tenant=multi_tenant,
                   mesh=None)
     print(f"🧮 solverd up on port {args.port} "
-          f"(grid {grid.height}x{grid.width}, device={device} [{name}])")
+          f"(grid {grid.height}x{grid.width}, device={device} [{name}]"
+          + (f", tenants={[t or '<default>' for t in tenant_list]}"
+             f" max={args.max_tenants}" if multi_tenant else "") + ")")
     sys.stdout.flush()
+
+    if multi_tenant:
+        # the tenant-aware loop replaces the single-fleet one end to end
+        multi_tenant_loop(bus, mt_runner, slab, beacon, stats_requested,
+                          dump_stats)
+        return 0
 
     # Pipelined tick loop (dispatch-then-poll): after dispatching the step
     # for request k the daemon returns to the bus; the decode of request

@@ -29,6 +29,33 @@ keeps ``index_put_`` deterministic on CUDA.  ``.at[].min`` is
 decide on the host (``hostsync.flag``) where the JAX package looped on the
 device; the fixed-length ``lax.scan`` walks are Python loops with no host
 sync.
+
+Tenant fold (``tenants=T`` of :func:`step_parallel`): the multi-tenant
+daemon steps T fleets of L lanes each, T x L in all, as one lane axis of
+``T * L`` agents, where the JAX package vmaps the step over the tenant axis
+with the shared direction-field cache broadcast.  (``torch.vmap`` cannot
+run this step: the cascade decides its loop on the host.)  Lane ``(t, l)``
+is agent ``t * L + l``; the occupancy grows a tenant axis, one plane of
+``H * W`` cells and its own scratch cell per tenant (see :class:`_Cells`),
+so two tenants' agents on the same cell of their separate worlds never
+meet.  Positions, goals and next hops stay plain cells.  The fold is exact:
+
+- an agent's blocker is read from its own tenant's plane, so every id that
+  one lane compares with or walks to lies in its own tenant, and the ids
+  of one tenant keep their order (``t * L`` is added to each), so lowest-id
+  priority within a tenant is unchanged: the Rule-3 winners (a scatter-min
+  over blocker ids) and the cascade's winners (a scatter-min in the
+  tenant's own plane) are the vmapped step's;
+- the Rule-4 cycle walks have a fixed length;
+- under ``vmap`` the JAX cascade's ``while_loop`` runs until no tenant
+  changes, each tenant's carry frozen once its own round moved nothing or
+  its round count reached ``max_move_rounds``.  The folded loop runs until
+  no lane of any tenant moves, at most ``max_move_rounds`` rounds: a round
+  of a tenant that has settled reads the same state and moves nothing, so
+  the extra rounds change nothing, and a tenant still moving at the cap is
+  cut at the same round as under ``vmap``.
+
+One cascade sync per round serves the whole slab.
 """
 
 from __future__ import annotations
@@ -67,20 +94,46 @@ def next_hops(cfg: SolverConfig, dirs: torch.Tensor, slot: torch.Tensor,
     return apply_direction(pos, code, cfg.width)
 
 
-def _occupancy(cfg: SolverConfig, pos: torch.Tensor,
-               active: torch.Tensor) -> torch.Tensor:
-    """(HW+1,) int32: agent id at each cell, -1 if empty.  Inactive agents
-    write the padded scratch cell and never occupy the grid."""
-    occ = torch.full((cfg.num_cells + 1,), -1, dtype=_I32, device=pos.device)
-    occ[torch.where(active, pos, cfg.num_cells)] = _arange(cfg.num_agents,
-                                                          pos.device)
+class _Cells:
+    """Addressing of the occupancy planes: ``rows`` planes of ``num_cells``
+    cells and one scratch cell each (``size`` entries), lane ``i`` in plane
+    ``i // (num_agents / rows)``.  With one plane (a single fleet) a cell
+    is its own index and no index op runs; with more, flat indices are
+    int64, so ``rows * (H*W + 1)`` never overflows int32 indexing."""
+
+    def __init__(self, cfg: SolverConfig, rows: int, device):
+        if rows < 1 or cfg.num_agents % rows:
+            raise ValueError(f"{cfg.num_agents} lanes do not fold into "
+                             f"{rows} tenant rows")
+        plane = cfg.num_cells + 1
+        self.size = rows * plane
+        self.base = None
+        if rows > 1:
+            lanes = cfg.num_agents // rows
+            self.base = (torch.arange(cfg.num_agents, device=device)
+                         // lanes * plane)
+
+    def of(self, cells: torch.Tensor) -> torch.Tensor:
+        """Index of each lane's cell ``cells[i]`` in the lane's own plane
+        (``num_cells`` is the plane's scratch cell)."""
+        return cells if self.base is None else self.base + cells
+
+
+def _occupancy(cfg: SolverConfig, pos: torch.Tensor, active: torch.Tensor,
+               cells: _Cells) -> torch.Tensor:
+    """(rows * (HW+1),) int32: agent id at each cell of each plane, -1 if
+    empty.  Inactive agents write their plane's scratch cell and never
+    occupy the grid."""
+    occ = torch.full((cells.size,), -1, dtype=_I32, device=pos.device)
+    occ[cells.of(torch.where(active, pos, cfg.num_cells))] = _arange(
+        cfg.num_agents, pos.device)
     return occ
 
 
-def _blockers(occ, pos, u):
+def _blockers(occ, pos, u, cells: _Cells):
     """Agent occupying each agent's desired next cell (-1 free / no move)."""
     has_move = u != pos
-    return torch.where(has_move, occ[u], -1), has_move
+    return torch.where(has_move, occ[cells.of(u)], -1), has_move
 
 
 def _within_radius(cfg: SolverConfig, pos, i_idx, j_idx):
@@ -118,7 +171,7 @@ def _hops(cfg: SolverConfig, nh_fn, slot, pos, goal, active):
 
 
 def _swap_phase_round(cfg: SolverConfig, pos, goal, slot, pushed, nh_fn, occ,
-                      active):
+                      active, cells: _Cells):
     n = cfg.num_agents
     dev = pos.device
     idx = _arange(n, dev)
@@ -126,7 +179,7 @@ def _swap_phase_round(cfg: SolverConfig, pos, goal, slot, pushed, nh_fn, occ,
     # ---- Rule 3: swap goals with a blocker parked on its own goal ----
     at_goal = pos == goal
     u = _hops(cfg, nh_fn, slot, pos, goal, active)
-    b, has_move = _blockers(occ, pos, u)
+    b, has_move = _blockers(occ, pos, u, cells)
     bc = b.clamp(0, n - 1)
     cand = (has_move & (b >= 0) & at_goal[bc]
             & _within_radius(cfg, pos, idx, bc))
@@ -150,7 +203,7 @@ def _swap_phase_round(cfg: SolverConfig, pos, goal, slot, pushed, nh_fn, occ,
     # ---- Rule 4: rotate goals around blocking cycles ----
     at_goal = pos == goal
     u = _hops(cfg, nh_fn, slot, pos, goal, active)
-    b, has_move = _blockers(occ, pos, u)
+    b, has_move = _blockers(occ, pos, u, cells)
     # blocking-graph successor; n = absorbing sentinel.  Freshly-pushed
     # agents absorb: no cycle may pass through them this step.
     f = torch.where(has_move & (b >= 0) & ~pushed, b, n)
@@ -201,27 +254,30 @@ def _initiated_cycles(cfg: SolverConfig, f, sees):
     return on_cycle_plain & any_ok
 
 
-def _cascade(cfg: SolverConfig, u, b, decided, newpos, active):
+def _cascade(cfg: SolverConfig, u, b, decided, newpos, active,
+             cells: _Cells):
     """Movement fixpoint: each round, every undecided agent whose target
     ``u`` is open -- no decided active agent ends there, and its original
     occupant ``b`` (-1 none) has decided to move away -- claims it, the
     lowest id winning.  Rounds repeat until nobody moves (one host sync
-    each)."""
+    each), in every plane of ``cells`` at once."""
     n = cfg.num_agents
     idx = _arange(n, u.device)
     bc = b.clamp(0, n - 1)
+    cu = cells.of(u)
     changed, r = True, 0
     while changed and r < cfg.max_move_rounds:
         # final occupancy of decided agents only (padded scratch cell)
-        occf = torch.full((cfg.num_cells + 1,), -1, dtype=_I32,
-                          device=u.device)
-        occf[torch.where(decided & active, newpos, cfg.num_cells)] = idx
+        occf = torch.full((cells.size,), -1, dtype=_I32, device=u.device)
+        occf[cells.of(torch.where(decided & active, newpos,
+                                  cfg.num_cells))] = idx
         orig_gone = (b < 0) | (decided[bc] & (newpos[bc] != u))
-        open_cell = (occf[u] == -1) & orig_gone
+        open_cell = (occf[cu] == -1) & orig_gone
         claimant = ~decided & open_cell
-        win = _scatter_min(cfg.num_cells + 1, n,
-                           torch.where(claimant, u, cfg.num_cells), idx)
-        mover = claimant & (win[u] == idx)
+        win = _scatter_min(cells.size, n,
+                           cells.of(torch.where(claimant, u, cfg.num_cells)),
+                           idx)
+        mover = claimant & (win[cu] == idx)
         decided = decided | mover
         newpos = torch.where(mover, u, newpos)
         changed = hostsync.flag(torch.any(mover))
@@ -229,23 +285,25 @@ def _cascade(cfg: SolverConfig, u, b, decided, newpos, active):
     return newpos
 
 
-def _movement_phase(cfg: SolverConfig, pos, goal, slot, nh_fn, occ, active):
+def _movement_phase(cfg: SolverConfig, pos, goal, slot, nh_fn, occ, active,
+                    cells: _Cells):
     n = cfg.num_agents
     idx = _arange(n, pos.device)
     u = _hops(cfg, nh_fn, slot, pos, goal, active)
-    b, has_move = _blockers(occ, pos, u)
+    b, has_move = _blockers(occ, pos, u, cells)
     bc = b.clamp(0, n - 1)
 
     # mutual position swap: i and blocker want each other's cells
     mutual = has_move & (b >= 0) & (u[bc] == pos) & (b != idx)
     newpos = torch.where(mutual, u, pos)
     decided = ~has_move | mutual
-    return _cascade(cfg, u, b, decided, newpos, active)
+    return _cascade(cfg, u, b, decided, newpos, active, cells)
 
 
 def step_parallel(cfg: SolverConfig, pos: torch.Tensor, goal: torch.Tensor,
                   slot: torch.Tensor, dirs: torch.Tensor,
-                  active: Optional[torch.Tensor] = None
+                  active: Optional[torch.Tensor] = None,
+                  tenants: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One TSWAP timestep for all agents.
 
@@ -258,6 +316,9 @@ def step_parallel(cfg: SolverConfig, pos: torch.Tensor, goal: torch.Tensor,
         (ops.distance.pack_directions); row ``slot[i]`` is agent i's field.
       active: (N,) bool lane mask, ``None`` for all lanes (see
         :func:`step_with_next_hops`).
+      tenants: T, the number of fleets folded into the N lanes (N / T
+        lanes each, fleet t in lanes ``t * N/T ..``; see the module
+        docstring).  1, the default, is one fleet on one occupancy plane.
 
     Returns:
       (pos, goal, slot) after the step, new tensors (no output is one of
@@ -265,7 +326,7 @@ def step_parallel(cfg: SolverConfig, pos: torch.Tensor, goal: torch.Tensor,
     """
     return step_with_next_hops(
         cfg, pos, goal, slot, lambda sl, po: next_hops(cfg, dirs, sl, po),
-        active)
+        active, tenants)
 
 
 def all_lanes(cfg: SolverConfig, device) -> torch.Tensor:
@@ -274,7 +335,7 @@ def all_lanes(cfg: SolverConfig, device) -> torch.Tensor:
 
 
 def step_with_next_hops(cfg: SolverConfig, pos, goal, slot, nh_fn,
-                        active=None):
+                        active=None, tenants: int = 1):
     """Step core parameterized by the next-hop lookup ``nh_fn(slot, pos)``.
 
     ``active`` masks padded or parked lanes out entirely (``None`` = all
@@ -282,16 +343,18 @@ def step_with_next_hops(cfg: SolverConfig, pos, goal, slot, nh_fn,
     cell of the occupancy, so a padded lane at cell 0 leaves cell 0 to the
     agent standing there), never moves and never enters the Rule-3/4 graph
     or the cascade.  Nothing selects an inactive lane, so its goal and
-    slot come back unchanged."""
+    slot come back unchanged.  ``tenants`` folds that many fleets into the
+    lanes (see :func:`step_parallel`)."""
+    cells = _Cells(cfg, tenants, pos.device)
     if active is None:
         active = all_lanes(cfg, pos.device)
-    occ = _occupancy(cfg, pos, active)
+    occ = _occupancy(cfg, pos, active, cells)
     pushed = torch.zeros(cfg.num_agents, dtype=torch.bool, device=pos.device)
     goal, slot = goal.clone(), slot.clone()
     for _ in range(cfg.swap_rounds):
         goal, slot, pushed = _swap_phase_round(cfg, pos, goal, slot, pushed,
-                                               nh_fn, occ, active)
-    pos = _movement_phase(cfg, pos, goal, slot, nh_fn, occ, active)
+                                               nh_fn, occ, active, cells)
+    pos = _movement_phase(cfg, pos, goal, slot, nh_fn, occ, active, cells)
     return pos, goal, slot
 
 
@@ -338,7 +401,8 @@ def step_stale(cfg: SolverConfig, pos, goal, slot, nh_fn, vpos, vgoal,
     idx = _arange(n, dev)
     if active is None:
         active = all_lanes(cfg, dev)
-    occ = _occupancy(cfg, pos, active)          # physical truth
+    cells = _Cells(cfg, 1, dev)
+    occ = _occupancy(cfg, pos, active, cells)   # physical truth
     vocc = _view_occupancy(cfg, vpos, visible & active)
 
     # own desired next hop: fresh self-knowledge (pos, goal, own field row)
@@ -400,15 +464,17 @@ def step_stale(cfg: SolverConfig, pos, goal, slot, nh_fn, vpos, vgoal,
 
     # ---- movement: only believed-free moves are attempted ----
     movers = has_move & ~blocked
-    newpos = _movement_cascade(cfg, pos, u, movers, occ, active, mutual)
+    newpos = _movement_cascade(cfg, pos, u, movers, occ, active, mutual,
+                               cells)
     return newpos, pend_from, pend_push
 
 
-def _movement_cascade(cfg: SolverConfig, pos, u, want, occ, active, mutual):
+def _movement_cascade(cfg: SolverConfig, pos, u, want, occ, active, mutual,
+                      cells: _Cells):
     """Physical movement arbitration for stale mode: :func:`_movement_phase`
     with an explicit mover mask and no mutual swaps, except the terminal
     mutual swap of a goal-mutual pair (``mutual``, computed by
     :func:`step_stale`)."""
     b = torch.where(want & ~mutual, occ[u], -1)  # true occupant of target
     return _cascade(cfg, u, b, mutual | ~want, torch.where(mutual, u, pos),
-                    active)
+                    active, cells)

@@ -522,3 +522,112 @@ def test_warm_builds_the_kernels_and_plans_on_cuda(cuda):
     assert solverd.warm(svc, grid, 12) == 12
     assert sweep_kernel.launches > before
     assert svc.dirs.is_cuda and len(svc.goal_rows) == 12
+
+
+def _tenant_planes(tenants=8, lanes=1024):
+    """The 1k-512 rung's fleets of seeds 0..tenants-1 as ``[T, L]`` slab
+    planes (each agent heading for its task's pickup, the lanes past 1000
+    padded at cell 0), with the shared field rows of every goal."""
+    from p2p_distributed_tswap_tpu_torch.models import scenarios
+
+    pos = np.zeros((tenants, lanes), np.int32)
+    goal = np.zeros((tenants, lanes), np.int32)
+    active = np.zeros((tenants, lanes), bool)
+    for k in range(tenants):
+        grid, starts, tasks, _ = scenarios.MEDIUM.build(seed=k)
+        n = len(starts)
+        pos[k, :n] = starts
+        goal[k, :n] = np.asarray(tasks)[np.arange(n) % len(tasks), 0]
+        active[k, :n] = True
+    goals = np.unique(goal[active])
+    slot = np.where(active, np.searchsorted(goals, goal), 0).astype(np.int32)
+    return grid, pos, goal, slot, active, goals
+
+
+def test_folded_step_on_cuda_matches_cpu(cuda):
+    """The tenant fold of the step at the width of the 8-tenant serve
+    phase, ``[8, 1024]`` lanes on the 1k-512 grid: three steps on the card
+    equal the same steps on the CPU, with as many cascade host syncs."""
+    from p2p_distributed_tswap_tpu_torch.solver import step
+
+    grid, pos, goal, slot, active, goals = _tenant_planes()
+    free = torch.from_numpy(grid.free).to(cuda)
+    dirs = torch.cat([
+        distance.pack_directions(distance.direction_fields(
+            free, torch.from_numpy(goals[o:o + 256].astype(np.int32)).to(
+                cuda)).reshape(-1, grid.num_cells))
+        for o in range(0, len(goals), 256)])
+    t, lanes = pos.shape
+    cfg = SolverConfig(height=grid.height, width=grid.width,
+                       num_agents=t * lanes)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        s = tuple(torch.from_numpy(x.reshape(-1).copy()).to(dev)
+                  for x in (pos, goal, slot))
+        act = torch.from_numpy(active.reshape(-1).copy()).to(dev)
+        d = dirs.to(dev)
+        before, out = hostsync.count, []
+        for _ in range(3):
+            s = step.step_parallel(cfg, *s, d, act, tenants=t)
+            out.append(tuple(x.cpu() for x in s))
+        runs[dev.type] = (out, hostsync.count - before)
+    assert runs["cuda"][1] == runs["cpu"][1]
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    moved = runs["cpu"][0][-1][0].numpy().reshape(t, lanes) != pos
+    assert moved[active].sum() > 1000
+
+
+def _tenant_stream(device, ticks=20, tenants=3):
+    """A 3-tenant closed-loop stream on the ref rung's grid, served by the
+    port's ``MultiTenantRunner`` on ``device`` (deferred fields off):
+    every tenant asks in every burst, adopts its reply, and an agent on its
+    goal takes a random next one.  Returns the publishes with
+    ``duration_micros`` dropped."""
+    from p2p_distributed_tswap_tpu_torch.models import scenarios
+    from p2p_distributed_tswap_tpu_torch.runtime import plan_codec as pc
+    from p2p_distributed_tswap_tpu_torch.runtime import solverd
+
+    grid = scenarios.REFERENCE_DEMO.build(seed=0)[0]
+    svc = solverd.PlanService(grid, capacity_min=16, device=device)
+    svc.defer_fields = False
+    pub = []
+    runner = solverd.MultiTenantRunner(
+        solverd.TenantSlab(svc, grid), grid,
+        publish=lambda t, d: pub.append(
+            (t, {k: v for k, v in d.items() if k != "duration_micros"})))
+    cells = np.flatnonzero(grid.free.reshape(-1))
+    fleets = {}
+    for k in range(tenants):
+        _, starts, tasks, _ = scenarios.REFERENCE_DEMO.build(seed=k)
+        fleets[f"t{k}"] = [np.asarray(starts).copy(),
+                           np.asarray(tasks)[:len(starts), 0].copy(),
+                           pc.PackedFleetEncoder(snapshot_every=10),
+                           np.random.default_rng(k)]
+    for seq in range(ticks):
+        for ns, (pos, goal, enc, rng) in fleets.items():
+            arrived = pos == goal
+            goal[arrived] = rng.choice(cells, int(arrived.sum()))
+            items = [(f"a{j}", int(p), int(g))
+                     for j, (p, g) in enumerate(zip(pos, goal))]
+            assert runner.ingest(ns, {
+                "type": "plan_request", "seq": seq, "codec": pc.CODEC_NAME,
+                "caps": [pc.CODEC_NAME],
+                "data": pc.encode_b64(enc.encode_tick(seq, items))})
+        n = len(pub)
+        runner.finish(runner.begin())
+        for topic, d in pub[n:]:
+            pos, goal = fleets[topic.split(":")[0]][:2]
+            rp = pc.decode_b64(d["data"])
+            pos[rp.idx], goal[rp.idx] = rp.pos, rp.goal
+    assert runner.slab.d_pos.device.type == device.type
+    return pub
+
+
+def test_tenant_runner_on_cuda_matches_cpu(cuda):
+    before = sweep_kernel.launches
+    got = _tenant_stream(cuda)
+    assert sweep_kernel.launches > before
+    assert len(got) == 60
+    assert got == _tenant_stream(torch.device("cpu"))

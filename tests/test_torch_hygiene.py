@@ -5,18 +5,23 @@
   CUDA they raise instead of quietly running on the CPU.
 - The CUDA kernels' wrappers refuse what the kernels do not take, CPU
   tensors included.
-- The JAX-free modules the serving path needs are copies of the JAX
-  package's: the same code, the package name rewritten.
-- The daemon refuses the modes it does not serve yet (mesh, multi-tenant,
-  sector planner), and a missing card unless ``--cpu`` is given.
+- The JAX-free modules the serving path and the fleet launcher need are
+  copies of the JAX package's: the same code, the package name rewritten;
+  the port's ``RuntimeConfig`` is the JAX package's, field for field.
+- The port's ``Fleet`` launcher spawns the port's daemon.
+- The daemon refuses the modes it does not serve yet (mesh, with or
+  without tenants, and the sector planner), a custom plan topic in
+  multi-tenant mode, and a missing card unless ``--cpu`` is given.
 """
 
 import ast
+import dataclasses
 import os
 import pathlib
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -75,8 +80,9 @@ COPIES = (
     "obs/__init__.py", "obs/audit.py", "obs/beacon.py", "obs/capture.py",
     "obs/events.py", "obs/flightrec.py", "obs/heartbeat.py",
     "obs/registry.py", "obs/trace.py", "runtime/__init__.py",
-    "runtime/bus_client.py", "runtime/busns.py", "runtime/plan_codec.py",
-    "runtime/region.py", "runtime/shardmap.py", "runtime/shmlane.py",
+    "runtime/bus_client.py", "runtime/buspool.py", "runtime/busns.py",
+    "runtime/fleet.py", "runtime/plan_codec.py", "runtime/region.py",
+    "runtime/shardmap.py", "runtime/shmlane.py",
 )
 
 
@@ -222,8 +228,9 @@ def _solverd(args, env_extra=None, env_drop=()):
 @pytest.mark.parametrize("args,env_extra,item", [
     (["--mesh", "2"], {}, "item 7"),
     ([], {"JG_SOLVER_MESH": "2x2"}, "item 7"),
-    (["--tenants", "a,b"], {}, "item 3"),
-    (["--multi-tenant"], {}, "item 3"),
+    # multi-tenant mode is served; with a mesh it is the mesh's item
+    (["--tenants", "a,b", "--mesh", "2"], {}, "item 7"),
+    (["--multi-tenant"], {"JG_SECTOR": "1"}, "item 6"),
     ([], {"JG_SECTOR": "1"}, "item 6"),
 ], ids=["mesh", "mesh-env", "tenants", "multi-tenant", "sector"])
 def test_daemon_refuses_what_is_not_ported(args, env_extra, item):
@@ -232,6 +239,98 @@ def test_daemon_refuses_what_is_not_ported(args, env_extra, item):
     assert out.returncode == 2
     assert item in out.stderr and "not ported" in out.stderr
     assert "solverd up" not in out.stdout
+
+
+@pytest.mark.parametrize("args", [
+    ["--tenants", "t0", "--solver-topic", "solver.r1"],
+    ["--multi-tenant", "--solver-topic", "solver.r1"],
+], ids=["tenants", "multi-tenant"])
+def test_daemon_refuses_a_custom_topic_with_tenants(args):
+    out = _solverd([*args, "--cpu"], env_drop=("JG_SOLVER_MESH", "JG_SECTOR",
+                                               "JG_SOLVER_TOPIC"))
+    assert out.returncode == 2
+    assert "--solver-topic is incompatible with multi-tenant" in out.stderr
+    assert "solverd up" not in out.stdout
+
+
+@pytest.mark.parametrize("args", [["--tenants", "t0,t1"], ["--multi-tenant"]],
+                         ids=["tenants", "multi-tenant"])
+def test_tenant_daemon_without_cuda_refuses_the_cpu(no_cuda, args):
+    out = _solverd(args, env_drop=("JG_SOLVER_MESH", "JG_SECTOR"))
+    assert out.returncode == 2
+    assert "CUDA" in out.stderr and "--cpu" in out.stderr
+    assert "solverd up" not in out.stdout
+
+
+def test_runtime_config_is_the_jax_packages():
+    from p2p_distributed_tswap_tpu.core.config import RuntimeConfig as J
+    from p2p_distributed_tswap_tpu_torch.core.config import RuntimeConfig as T
+
+    def shape(cls):
+        return [(f.name, f.type, f.default)
+                for f in dataclasses.fields(cls)]
+
+    assert shape(T) == shape(J)
+    kw = {"planning_interval_ms": 250, "log_level": "debug",
+          "task_csv_path": "t.csv"}
+    assert T(**kw).to_env() == J(**kw).to_env()
+    assert T().to_env() == J().to_env()
+
+
+class _FakeProc:
+    pid = 4242
+
+    def __init__(self, cmd, stdin=None, stdout=None, stderr=None, env=None):
+        self.cmd, self.env = cmd, env
+        self.stdin = types.SimpleNamespace(write=lambda b: None,
+                                           flush=lambda: None)
+
+    def poll(self):
+        return None
+
+    def send_signal(self, sig):
+        pass
+
+    def wait(self, timeout=None):
+        return 0
+
+
+def test_port_fleet_spawns_the_port_daemon(monkeypatch, tmp_path):
+    """The launcher's commands, built without the C++ binaries: the
+    centralized ``--solver tpu`` fleet starts the port's daemon with the
+    caller's arguments, and its RuntimeConfig reaches every child."""
+    from p2p_distributed_tswap_tpu_torch.core.config import RuntimeConfig
+    from p2p_distributed_tswap_tpu_torch.runtime import fleet
+
+    procs = []
+
+    def popen(cmd, **kw):
+        procs.append(_FakeProc(cmd, **kw))
+        return procs[-1]
+
+    monkeypatch.setattr(fleet, "ensure_built", lambda: tmp_path / "build")
+    monkeypatch.setattr(fleet, "subprocess", types.SimpleNamespace(
+        Popen=popen, PIPE=subprocess.PIPE, STDOUT=subprocess.STDOUT,
+        TimeoutExpired=subprocess.TimeoutExpired))
+    monkeypatch.setattr(fleet, "time", types.SimpleNamespace(
+        sleep=lambda s: None, monotonic=__import__("time").monotonic))
+    monkeypatch.setattr(fleet, "wait_for_log", lambda *a, **k: True)
+    f = fleet.Fleet("centralized", num_agents=2, port=7777,
+                    map_file="m.txt", solver="tpu", log_dir=tmp_path / "logs",
+                    config=RuntimeConfig(planning_interval_ms=250),
+                    solverd_args=["--tenants", "t0,t1"])
+    cmds = {name: p.cmd for name, p in zip(f._names, procs)}
+    assert cmds["solverd"] == [
+        sys.executable, "-m", "p2p_distributed_tswap_tpu_torch.runtime.solverd",
+        "--port", "7777", "--map", "m.txt", "--tenants", "t0,t1"]
+    assert cmds["manager"][1:] == ["--port", "7777", "--map", "m.txt",
+                                   "--solver", "tpu"]
+    assert sorted(cmds) == ["agent_1", "agent_2", "bus", "manager",
+                            "solverd"]
+    assert {p.env["MAPD_PLANNING_INTERVAL_MS"] for p in procs} == {"250"}
+    f.close()
+    assert [r["proc"] for r in f.exit_summary] == [
+        "bus", "solverd", "manager", "agent_1", "agent_2"]
 
 
 def test_daemon_without_cuda_refuses_the_cpu(no_cuda):
