@@ -25,7 +25,12 @@ into the next.  Phases:
                kernel took; at the path shapes also the kernel's device
                time per launch (CUDA events around 25 back-to-back
                launches, median of 5 runs, each run listed), its bytes
-               bound at 3.35 TB/s, and the plain version's time.
+               bound at 3.35 TB/s, and the plain version's time.  Then the
+               same with one mask per field (the repair and sector
+               windows): the sector planner's portal rebuild batch at
+               S = 64 (512, 128, 128), its corridor batch (16, 128, 128)
+               and (8, 256, 256), timed, with fully blocked padded layers,
+               and ragged shapes; the bound counts R masks.
 4. fused    — both instances of the fused field kernel == their plain
                version (``torch.equal``): multi at the congested rung's
                in-step and prime chunks on its warehouse, single at the
@@ -99,14 +104,44 @@ into the next.  Phases:
 17. checkpoint — the ref rung on ``cuda``: saved at step 60, loaded into a
                fresh state and finished: paths and makespan identical to
                the uninterrupted solve.
-18. kernels — one JSON object describing every kernel of the paths.
-19. the last line: ``{"ok": true, "device": {...}}``.
+18. repair_1024 — ``ops/field_repair.py`` on the flagship's 1024²
+               warehouse with a closed room: 16 goals swept with
+               distances on the card, 8 events of a 3-cell wall closing
+               on a route, then the room's door opening (its repair
+               window, past 16 384 cells, sweeps by ``sweep_scan``);
+               every repaired field equal to a full recompute on the card.
+               Repair ms p50/p95 per field against full-recompute ms per
+               field (the sweeps, and ``MAPD_FUSED=single``; chunks of 1
+               and 8), fallbacks, ``sweep_scan`` launches per event.
+19. sector_1024 — ``ops/sector.py`` on the same grid at S = 64: portal
+               graph built on ``cuda`` (the jit path) and on ``cpu`` (the
+               host path), equal; 20 goals planned from 2 starts each on
+               both, rows and distances equal; plan ms p50/p95 against the
+               fresh sweep of one goal; ε of every start against the full
+               field at most 0.05; launches per plan; a 3-cell toggle.
+20. serve_dynamic_1k_512 — 1k-512 served, 200 delta ticks, a 3-cell wall
+               closing near an agent's route every 10 ticks and opening
+               10 later, the field queue drained after each tick (the
+               daemon's idle window); under ``JG_DYNAMIC_WORLD=1`` and
+               unset: replies identical, every tick certified on the live
+               mask, incremental repairs under ``=1``; tick ms, idle ms,
+               the repair, mirror and sector counters.
+21. serve_sector_parity — ``JG_SECTOR=1``: the ref rung served on
+               ``cuda`` and ``cpu`` from one fleet, 60 ticks with one
+               world toggle, replies identical; then 1k-512 served for
+               100 ticks, every tick certified, snapshot and tick ms
+               beside the unset run of phase 12.
+22. kernels — one JSON object describing every kernel of the paths.
+23. the last line: ``{"ok": true, "device": {...}}``.
 
 Each path (phase 9 for ``sweep_scan``, 8 for the multi instance, 10 for the
-single instance, and each served run of 12-16 for the kernels it takes) is
-driven with every kernel's and the host syncs' counts set to 0 just before
-it and read just after it (in phase 16 around each super-step burst, not
-around the single-tenant runs it is compared with).
+single instance, each served run of 12-16 and 20-21 for the kernels it
+takes, and the repair and sector phases 18-19) is driven with every
+kernel's and the host syncs' counts set to 0 just before it and read just
+after it (in phase 16 around each super-step burst, not around the
+single-tenant runs it is compared with; in 18 around each event's
+repairs, not the full recomputes that check them; in 19 around each plan
+on the card).
 
 The fleet (``ServeFleet``) does with each reply what the C++ centralized
 manager does: it adopts the moves; it adopts returned goals, the task
@@ -137,9 +172,13 @@ import torch
 
 from p2p_distributed_tswap_tpu_torch import hostsync
 from p2p_distributed_tswap_tpu_torch.models import scenarios
+from p2p_distributed_tswap_tpu_torch.obs import registry
 from p2p_distributed_tswap_tpu_torch.ops import (
     cuda_build,
+    distance,
     field_fused,
+    field_repair,
+    sector,
     sweep_kernel,
 )
 from p2p_distributed_tswap_tpu_torch.runtime import plan_codec as pcodec
@@ -171,6 +210,22 @@ TENANTS = 8
 TENANT_TICKS = 100
 CHECKPOINT_STEP = 60
 NO_SNAPSHOT = 1 << 30  # snapshot_every: one snapshot, then deltas only
+REPAIR_GOALS = 16
+REPAIR_EVENTS = 8
+SECTOR_CELLS = 64           # the planner's default sector side
+SECTOR_GOALS = 20
+SECTOR_STARTS = 2
+SECTOR_EPS = 0.05           # the committed bound on corridor suboptimality
+SERVE_DYNAMIC_TICKS = 200
+WALL_EVERY = 10             # ticks between a wall closing and opening
+SERVE_SECTOR_PARITY_TICKS = 60
+SERVE_SECTOR_TICKS = 100
+# The counters of the repair and sector layers that the serve phases read.
+LAYER_COUNTERS = (
+    "solverd.field_repairs", "solverd.field_repair_fallbacks",
+    "solverd.mirror_evictions", "solverd.world_toggles",
+    "solverd.sector_routes", "solverd.sector_fallbacks",
+    "solverd.sector_reentries", "solverd.sector_rebuilds")
 
 
 def emit(phase: str, **fields) -> None:
@@ -189,25 +244,36 @@ def phase_device() -> dict:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    import scipy  # the sector planner's host path runs scipy's BFS
+
     info = {"nvidia_smi": card, "torch_name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
-            "torch": torch.__version__, "cuda": torch.version.cuda}
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "scipy": scipy.__version__}
     emit("device", **info)
     return info
 
 
 @contextlib.contextmanager
-def fused_env(value: str):
-    """``MAPD_FUSED=value`` ('' = unset) inside the block, restored after."""
-    old = os.environ.pop("MAPD_FUSED", None)
-    if value:
-        os.environ["MAPD_FUSED"] = value
+def env_vars(values: dict):
+    """Each ``values`` entry set ('' = unset) inside the block, restored
+    after."""
+    old = {k: os.environ.pop(k, None) for k in values}
+    for k, v in values.items():
+        if v:
+            os.environ[k] = v
     try:
         yield
     finally:
-        os.environ.pop("MAPD_FUSED", None)
-        if old is not None:
-            os.environ["MAPD_FUSED"] = old
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def fused_env(value: str):
+    """``MAPD_FUSED=value`` ('' = unset) inside the block, restored after."""
+    return env_vars({"MAPD_FUSED": value})
 
 
 def reset_counts() -> None:
@@ -316,10 +382,11 @@ def sweep_inputs(dev: torch.device, r: int, h: int, w: int, kind: str,
     return torch.where(seeds & free[None], vals, INF).contiguous(), blocked
 
 
-def sweep_bound(r: int, h: int, w: int) -> dict:
-    """Each cell read and written once (int32) and the mask read once, over
-    the memory rate: the least time a sweep could take."""
-    nbytes = 2 * r * h * w * 4 + h * w
+def sweep_bound(r: int, h: int, w: int, per_field: bool = False) -> dict:
+    """Each cell read and written once (int32) and the mask read once (one
+    plane, or one per field), over the memory rate: the least time a sweep
+    could take."""
+    nbytes = 2 * r * h * w * 4 + (r if per_field else 1) * h * w
     return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes"}
 
@@ -353,7 +420,71 @@ def phase_kernel(dev: torch.device, card: str) -> list:
             emit("kernel", **row)
             check(equal, f"sweep_scan != plain at {row}")
             rows.append(row)
+    for r, h, w, pad, timed in PER_FIELD_CASES:
+        d, blocked = per_field_inputs(dev, r, h, w, pad)
+        for axis, reverse in DIRECTIONS:
+            got = sweep_kernel.sweep_scan(d, blocked, axis, reverse)
+            want = sweep_kernel.sweep_plain(d, blocked, axis, reverse)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            equal = bool(torch.equal(got, want))
+            row = {"shape": [r, h, w], "mask": "per_field",
+                   "padded_layers": pad, "axis": axis, "reverse": reverse,
+                   **sweep_kernel.launch_layout(r, h, w, axis),
+                   "equal": equal, "max_abs_err": err}
+            if timed:
+                row["ms_runs"] = _launch_ms_runs(
+                    lambda: sweep_kernel.sweep_scan(d, blocked, axis,
+                                                    reverse), TIMED_LAUNCHES)
+                row["ms"] = statistics.median(row["ms_runs"])
+                row["plain_ms"] = _per_launch_ms(
+                    lambda: sweep_kernel.sweep_plain(d, blocked, axis,
+                                                     reverse), PLAIN_TIMED,
+                    reps=3)
+                row.update(sweep_bound(r, h, w, per_field=True))
+                row["card"] = card
+            emit("kernel", **row)
+            check(equal, f"sweep_scan != plain with per-field masks at {row}")
+            rows.append(row)
     return rows
+
+
+PER_FIELD_CASES = (
+    # (R, H, W, fully blocked layers, timed), one mask per field: the
+    # sector planner's portal rebuild batch at S = 64 (512 windows of 66^2
+    # padded to 128^2), its corridor batch (16 sectors), a corridor batch
+    # of 256^2 windows, then ragged shapes
+    (512, 128, 128, 12, True),
+    (16, 128, 128, 3, True),
+    (8, 256, 256, 1, True),
+    (5, 37, 53, 1, False),
+    (3, 1025, 33, 1, False),
+    (70000, 3, 5, 1000, False),
+)
+
+
+def per_field_inputs(dev: torch.device, r: int, h: int, w: int,
+                     pad: int) -> tuple:
+    """(d, blocked) with one mask per field, made on the card from a seed
+    of the shape: each window's own random obstacles (20 %) inside a
+    blocked halo ring, the pow2 padding past 66 of every 128 cells blocked
+    (as a 66^2 sector window padded to 128^2), the last ``pad`` layers
+    fully blocked, and about 3 % of the free cells seeded."""
+    gen = torch.Generator(device=dev).manual_seed(7 * r * h + w)
+    free = torch.rand((r, h, w), generator=gen, device=dev) > 0.2
+    free[:, [0, -1], :] = False
+    free[:, :, [0, -1]] = False
+    if h >= 128:
+        free[:, (h * 66) // 128:, :] = False
+    if w >= 128:
+        free[:, :, (w * 66) // 128:] = False
+    if pad:
+        free[r - pad:] = False
+    seeds = torch.rand((r, h, w), generator=gen, device=dev) > 0.97
+    vals = torch.randint(0, 60, (r, h, w), generator=gen, device=dev,
+                         dtype=torch.int32)
+    d = torch.where(seeds & free, vals, INF).contiguous()
+    return d, (~free).to(torch.uint8).contiguous()
 
 
 FUSED_CASES = (
@@ -816,23 +947,36 @@ def _pct(xs, q) -> float:
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
+def _layer_counters() -> dict:
+    c = registry.get_registry().snapshot()["counters"]
+    return {k: c.get(k, 0) for k in LAYER_COUNTERS}
+
+
 def _serve(scn, dev: torch.device, ticks: int, fused: str = "",
-           keep_bytes: bool = True) -> dict:
+           keep_bytes: bool = True, env=None, world=None) -> dict:
     """Serve ``scn`` (seed 0) through the port's ``TickRunner`` on ``dev``:
     one packed snapshot, then ``ticks`` delta ticks of the closed-loop
     fleet, every move set certified.  Counts are set to 0 just before the
-    snapshot and read after the last tick."""
+    snapshot and read after the last tick.  ``env`` is set around the run
+    (``JG_DYNAMIC_WORLD``, ``JG_SECTOR``); ``world(seq, runner, fleet)``
+    may send world updates before each tick, and then the field queue is
+    drained after each tick, as the daemon's idle window does."""
     grid, starts, tasks, _ = scn.build(seed=0)
     fleet = ServeFleet(grid, starts, tasks)
+    fleet.free = fleet.free.copy()  # the live mask the moves are held to
     beats = _PhaseBeats()
-    with fused_env(fused):
+    with fused_env(fused), env_vars(env or {}):
         svc = solverd.PlanService(grid, device=dev)
         runner = solverd.TickRunner(svc, grid, heartbeat=beats)
         enc = pcodec.PackedFleetEncoder(snapshot_every=NO_SNAPSHOT)
         datas, tick_ms, fresh, syncs, launches = [], [], [], [], []
+        idle_ms = []
         certified = True
+        layers0 = _layer_counters()
         reset_counts()
         for seq in range(ticks + 1):
+            if world is not None:
+                world(seq, runner, fleet)
             fleet.transitions()
             req = {"type": "plan_request", "seq": seq,
                    "codec": pcodec.CODEC_NAME, "caps": [pcodec.CODEC_NAME],
@@ -852,6 +996,11 @@ def _serve(scn, dev: torch.device, ticks: int, fused: str = "",
             fleet.adopt(rp.idx, rp.pos, rp.goal)
             if keep_bytes:
                 datas.append(resp["data"])
+            if world is not None:
+                t1 = time.perf_counter()
+                while svc.field_queue:
+                    svc.process_field_queue()
+                idle_ms.append(1e3 * (time.perf_counter() - t1))
             if seq == 0:
                 snap = {"snapshot_ms": ms, "snapshot_fresh_sweeps":
                         svc.cache_misses - m0,
@@ -885,6 +1034,15 @@ def _serve(scn, dev: torch.device, ticks: int, fused: str = "",
         "over_budget_ticks": sum(1 for m in tick_ms
                                  if m > solverd.TICK_BUDGET_MS),
         "certified": certified, "recompiles": svc.recompiles}
+    layers1 = _layer_counters()
+    out["layer_counters"] = {k: layers1[k] - layers0[k]
+                             for k in LAYER_COUNTERS}
+    out["dist_mirrors"] = len(svc.dist_mirror)
+    if idle_ms:
+        out["idle_ms_p50"] = _pct(idle_ms, 50)
+        out["idle_ms_max"] = max(idle_ms)
+    if svc.sector is not None:
+        out["sector"] = svc.sector.stats()
     return {"out": out, "datas": datas}
 
 
@@ -1302,6 +1460,394 @@ def phase_checkpoint(dev: torch.device, tmpdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# dynamic worlds: field repair and the sector planner
+# ---------------------------------------------------------------------------
+
+ROOM = (402, 522, 402, 522)  # top, bottom, left, right walls of the room
+DOOR = (402, 462)            # on the top wall, over an aisle column
+
+
+def _room_world(free: np.ndarray) -> np.ndarray:
+    """The flagship warehouse with a closed room (walls on rows 402, 522
+    and columns 402, 522; the shelves inside untouched): its door, when it
+    opens, re-routes only the room, a region larger than
+    ``DIJKSTRA_MAX_CELLS``."""
+    free = free.copy()
+    top, bottom, left, right = ROOM
+    free[[top, bottom], left:right + 1] = False
+    free[top:bottom + 1, [left, right]] = False
+    return free
+
+
+def _wall_on_route(dist: np.ndarray, free: np.ndarray, w: int,
+                   rng: np.random.Generator, avoid: set) -> list:
+    """Three cells of a route of ``dist``'s field: from a reachable start,
+    the 10th, 11th and 12th steps down the field (none in ``avoid``)."""
+    flat, fr = dist.reshape(-1), free.reshape(-1)
+    h = flat.size // w
+    starts = np.flatnonzero((flat < INF) & (flat > 20) & fr)
+    while True:
+        c = int(rng.choice(starts))
+        route = []
+        for _ in range(12):
+            y, x = divmod(c, w)
+            nbrs = [n for n in (c - w if y else -1,
+                                c + w if y + 1 < h else -1,
+                                c - 1 if x else -1,
+                                c + 1 if x + 1 < w else -1)
+                    if n >= 0 and fr[n]]
+            c = min(nbrs, key=lambda n: (flat[n], n))
+            route.append(c)
+        wall = route[9:12]
+        if not avoid.intersection(wall):
+            return wall
+
+
+def phase_repair(dev: torch.device, card: str) -> dict:
+    """Incremental field repair at the flagship's size: 16 goals swept
+    with distances on the card, then 8 events of a 3-cell wall closing
+    across a route, then the room's door opening; every repaired field of
+    every event equals a full recompute on the card.  Against it, the
+    full recompute's time per field (the sweeps, and the fused kernel
+    under ``MAPD_FUSED=single``)."""
+    grid = scenarios.FLAGSHIP.grid_fn()
+    h, w = grid.height, grid.width
+    free = _room_world(np.asarray(grid.free))
+    rng = np.random.default_rng(0)
+    top, bottom, left, right = ROOM
+    outside = free.copy()
+    outside[top:bottom + 1, left:right + 1] = False
+    goals = rng.choice(np.flatnonzero(outside.reshape(-1)), REPAIR_GOALS,
+                       replace=False).astype(np.int32)
+    goals_t = torch.from_numpy(goals).to(dev)
+
+    def full(f: np.ndarray) -> np.ndarray:
+        return distance.distance_fields(torch.from_numpy(f).to(dev),
+                                        goals_t).cpu().numpy()
+
+    fields = list(full(free))
+    door = DOOR[0] * w + DOOR[1]
+    avoid = set(goals.tolist()) | {door}
+    events = []
+    for e in range(REPAIR_EVENTS):
+        events.append(("wall", _wall_on_route(fields[e % REPAIR_GOALS],
+                                              free, w, rng, avoid), True))
+    events.append(("door", [door], False))
+    repair_ms, row_ms, per_event, fallbacks = [], [], [], 0
+    all_equal = True
+    for kind, cells, blocked in events:
+        for c in cells:
+            free.reshape(-1)[c] = not blocked
+        reset_counts()
+        t_event = []
+        for k in range(REPAIR_GOALS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = field_repair.repair_field(fields[k], free, cells,
+                                            device=dev)
+            t1 = time.perf_counter()
+            if res is None:
+                fallbacks += 1
+                continue
+            new, (y0, y1, x0, x1) = res
+            b0, b1 = max(0, y0 - 1), min(h, y1 + 1)
+            codes = field_repair.directions_np(new, free, b0, b1)
+            field_repair.pack_rows_np(codes.reshape(-1))
+            t2 = time.perf_counter()
+            repair_ms.append(1e3 * (t1 - t0))
+            row_ms.append(1e3 * (t2 - t0))
+            t_event.append(1e3 * (t1 - t0))
+            fields[k] = new
+        launches = sweep_kernel.launches
+        ref = full(free)
+        same = all(np.array_equal(fields[k], ref[k])
+                   for k in range(REPAIR_GOALS))
+        all_equal = all_equal and same
+        fields = list(ref)  # fallbacks take the full recompute
+        per_event.append({"kind": kind, "cells": cells,
+                          "sweep_scan_launches": launches,
+                          "repairs": len(t_event),
+                          "repair_ms_max": max(t_event, default=0.0),
+                          "equal_to_full": same})
+        check(same, f"repair_1024: a repaired field differs from the full "
+              f"recompute after the {kind} event {cells}")
+    free_t = torch.from_numpy(free).to(dev)
+    times = {}
+    for label, mode in (("sweeps", ""), ("fused_single", "single")):
+        with fused_env(mode):
+            for g in (1, 8):
+                gv = goals_t[:g]
+
+                def run():
+                    if mode:
+                        return distance.pack_directions(
+                            distance.direction_fields(free_t, gv).reshape(
+                                g, -1))
+                    d = distance.distance_fields(free_t, gv)
+                    return distance.pack_directions(
+                        distance.directions_from_distance(d, free_t)
+                        .reshape(g, -1))
+
+                run()
+                runs = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    runs.append(1e3 * (time.perf_counter() - t0) / g)
+                times[f"{label}_chunk{g}_ms_per_field"] = \
+                    statistics.median(runs)
+    walls = [e for e in per_event if e["kind"] == "wall"]
+    door_ev = per_event[-1]
+    out = {"grid": [h, w], "goals": REPAIR_GOALS, "events": per_event,
+           "repair_ms_p50": _pct(repair_ms, 50),
+           "repair_ms_p95": _pct(repair_ms, 95),
+           "repair_ms_max": max(repair_ms),
+           "repair_row_ms_p50": _pct(row_ms, 50),
+           "repair_row_ms_p95": _pct(row_ms, 95),
+           "full_recompute": times, "fallbacks": fallbacks,
+           "sweep_scan_launches_per_wall_event": float(np.mean(
+               [e["sweep_scan_launches"] for e in walls])),
+           "sweep_scan_launches_door_event": door_ev["sweep_scan_launches"],
+           "window_ceiling": field_repair.default_max_window(h * w, dev),
+           "equal_to_full": all_equal, "card": card}
+    emit("repair_1024", **out)
+    check(door_ev["sweep_scan_launches"] > 0, "repair_1024: the door's "
+          "repair windows did not sweep by sweep_scan")
+    return out
+
+
+def phase_sector(dev: torch.device, card: str, fresh_ms: float) -> dict:
+    """The sector planner at the flagship's size (S = 64): the portal graph
+    built on the card (jit path) and on the CPU (host path), equal; 20
+    goals planned from 2 starts each on both, packed rows and distances
+    equal; ε of each start against the full field on the card within the
+    committed bound."""
+    grid = scenarios.FLAGSHIP.grid_fn()
+    h, w = grid.height, grid.width
+    free = np.asarray(grid.free)
+    masks = {"cuda": free.copy(), "cpu": free.copy()}
+    planners, build_s = {}, {}
+    reset_counts()
+    for key, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planners[key] = sector.SectorPlanner(masks[key], s=SECTOR_CELLS,
+                                             device=d)
+        torch.cuda.synchronize()
+        build_s[key] = time.perf_counter() - t0
+    build_launches = sweep_kernel.launches
+    pc, ph = planners["cuda"], planners["cpu"]
+    check(pc.use_jit and not ph.use_jit, "sector_1024: the planners did not "
+          "take the card's jit path and the CPU's host path")
+    same_graph = pc.graph_state() == ph.graph_state()
+    check(same_graph, "sector_1024: portal graphs differ between cuda and "
+          "cpu")
+    rng = np.random.default_rng(1)
+    cells = np.flatnonzero(free.reshape(-1))
+    goals = rng.choice(cells, SECTOR_GOALS, replace=False).astype(np.int32)
+    ref = distance.distance_fields(torch.from_numpy(free).to(dev),
+                                   torch.from_numpy(goals).to(dev)
+                                   ).cpu().numpy().reshape(SECTOR_GOALS, -1)
+    plan_ms = {"cuda": [], "cpu": []}
+    launches, eps, corridor = [], [], []
+    same_rows = True
+    for k, g in enumerate(goals.tolist()):
+        reach = cells[(ref[k][cells] < INF) & (cells != g)]
+        starts = [int(c) for c in rng.choice(reach, SECTOR_STARTS,
+                                             replace=False)]
+        plans = {}
+        for key, p in planners.items():
+            before = sweep_kernel.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plans[key] = p.plan_goal(g, starts, keep_dist=True)
+            plan_ms[key].append(1e3 * (time.perf_counter() - t0))
+            if key == "cuda":
+                launches.append(sweep_kernel.launches - before)
+        a, b = plans["cuda"], plans["cpu"]
+        same_rows = (same_rows and np.array_equal(a.packed, b.packed)
+                     and np.array_equal(a.dist, b.dist))
+        corridor.append(len(a.sectors))
+        for st in starts:
+            eps.append((int(a.dist.reshape(-1)[st]) - int(ref[k][st]))
+                       / max(1, int(ref[k][st])))
+    check(same_rows, "sector_1024: corridor plans differ between cuda and "
+          "cpu")
+    check(max(eps) <= SECTOR_EPS, f"sector_1024: eps {max(eps)} over the "
+          f"bound {SECTOR_EPS}")
+    # one world toggle, repaired incrementally on both
+    tog = [int(c) for c in rng.choice(cells, 3, replace=False)]
+    toggle_ms = {}
+    for key, p in planners.items():
+        masks[key].reshape(-1)[tog] = False
+        t0 = time.perf_counter()
+        p.apply_toggles(tog)
+        toggle_ms[key] = 1e3 * (time.perf_counter() - t0)
+    check(pc.graph_state() == ph.graph_state(), "sector_1024: repaired "
+          "portal graphs differ between cuda and cpu")
+    out = {"grid": [h, w], "sector_cells": SECTOR_CELLS,
+           "sectors": pc.sy * pc.sx,
+           "portal_cells": pc.stats()["portal_cells"],
+           "build_seconds": build_s, "build_sweep_scan_launches":
+               build_launches, "graph_equal": same_graph,
+           "plans": SECTOR_GOALS, "starts_per_plan": SECTOR_STARTS,
+           "plan_ms_p50": {k: _pct(v, 50) for k, v in plan_ms.items()},
+           "plan_ms_p95": {k: _pct(v, 95) for k, v in plan_ms.items()},
+           "fresh_sweep_ms_per_goal": fresh_ms,
+           "sweep_scan_launches_per_plan": float(np.mean(launches)),
+           "corridor_sectors_mean": float(np.mean(corridor)),
+           "corridor_sectors_max": max(corridor),
+           "rows_equal": same_rows, "eps_max": max(eps),
+           "eps_mean": float(np.mean(eps)), "eps_bound": SECTOR_EPS,
+           "toggle_repair_ms": toggle_ms, "card": card}
+    emit("sector_1024", **out)
+    check(out["sweep_scan_launches_per_plan"] > 0, "sector_1024: the plans "
+          "on the card launched no sweep_scan")
+    return out
+
+
+class WallToggler:
+    """Every ``WALL_EVERY`` ticks a 3-cell wall closes near an agent's
+    route, and the next time it opens again: world_update frames to the
+    runner, the fleet's live mask kept in step.  The wall never covers an
+    agent, a goal or a task's cell."""
+
+    def __init__(self, grid):
+        self.w, self.h = grid.width, grid.height
+        self.cells: list = []
+        self.seq = 0
+
+    def _pick(self, fleet, k: int) -> list:
+        busy = (set(fleet.pos.tolist()) | set(fleet.goal.tolist())
+                | set(fleet.tasks.reshape(-1).tolist()))
+        n = len(fleet.pos)
+        for a in range(k, k + n):
+            y0, x0 = divmod(int(fleet.pos[a % n]), self.w)
+            for dy in range(-6, 7):
+                for dx in range(-6, 5):
+                    y, x = y0 + dy, x0 + dx
+                    if not (0 <= y < self.h and 0 <= x and x + 2 < self.w):
+                        continue
+                    wall = [y * self.w + x + i for i in range(3)]
+                    if all(fleet.free[c] and c not in busy for c in wall):
+                        return wall
+        raise RuntimeError("chip_smoke: no place for a wall")
+
+    def __call__(self, seq, runner, fleet) -> None:
+        if seq == 0 or seq % WALL_EVERY:
+            return
+        closing = not self.cells
+        if closing:
+            self.cells = self._pick(fleet, seq // WALL_EVERY)
+        self.seq += 1
+        runner.handle({"type": "world_update", "world_seq": self.seq,
+                       "toggles": [[c, int(closing)] for c in self.cells]})
+        for c in self.cells:
+            fleet.free[c] = not closing
+        if not closing:
+            self.cells = []
+
+
+def phase_serve_dynamic(dev: torch.device) -> dict:
+    """1k-512 served with a 3-cell wall closing and opening every
+    WALL_EVERY ticks, under ``JG_DYNAMIC_WORLD=1`` (repair mirrors from the
+    start) and unset (from the first toggle): every tick certified on the
+    live mask, replies identical between the two."""
+    runs = {}
+    for label, value in (("dynamic_world_1", "1"), ("unset", "")):
+        grid = scenarios.MEDIUM.grid_fn()
+        runs[label] = _serve(scenarios.MEDIUM, dev, SERVE_DYNAMIC_TICKS,
+                             env={"JG_DYNAMIC_WORLD": value},
+                             world=WallToggler(grid))
+        torch.cuda.empty_cache()
+    a, b = runs["dynamic_world_1"], runs["unset"]
+    identical = a["datas"] == b["datas"]
+    out = {"scenario": scenarios.MEDIUM.name, "identical": identical,
+           "wall_every": WALL_EVERY,
+           "dynamic_world_1": a["out"], "unset": b["out"]}
+    emit("serve_dynamic_1k_512", **out)
+    check(identical, "serve_dynamic_1k_512: replies differ between "
+          "JG_DYNAMIC_WORLD=1 and unset")
+    check(a["out"]["layer_counters"]["solverd.field_repairs"] > 0,
+          "serve_dynamic_1k_512: no incremental repair under "
+          "JG_DYNAMIC_WORLD=1")
+    check(a["out"]["main_path_counts"]["sweep"] > 0,
+          "serve_dynamic_1k_512: no sweep_scan launch on the path")
+    return out
+
+
+def phase_serve_sector(dev: torch.device, unset: dict) -> dict:
+    """``JG_SECTOR=1``: the ref rung served on ``cuda`` and ``cpu`` from one
+    fleet, one world toggle mid-stream, replies identical; then 1k-512
+    served, every tick certified, beside the unset run."""
+    scn = scenarios.REFERENCE_DEMO
+    grid, starts, tasks, _ = scn.build(seed=0)
+    fleet = ServeFleet(grid, starts, tasks)
+    fleet.free = fleet.free.copy()
+    runners = {}
+    with fused_env(""), env_vars({"JG_SECTOR": "1"}):
+        for key, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            svc = solverd.PlanService(grid, capacity_min=16, device=d)
+            svc.defer_fields = False
+            runners[key] = solverd.TickRunner(svc, grid)
+        enc = pcodec.PackedFleetEncoder(snapshot_every=NO_SNAPSHOT)
+        layers0 = _layer_counters()
+        reset_counts()
+        toggled = None
+        for seq in range(SERVE_SECTOR_PARITY_TICKS + 1):
+            if seq == SERVE_SECTOR_PARITY_TICKS // 2:
+                busy = (set(fleet.pos.tolist()) | set(fleet.goal.tolist())
+                        | set(fleet.tasks.reshape(-1).tolist()))
+                toggled = min((c for c in np.flatnonzero(fleet.free)
+                               if int(c) not in busy), key=lambda c: (
+                    abs(c // grid.width - grid.height // 2)
+                    + abs(c % grid.width - grid.width // 2), c))
+                for run in runners.values():
+                    run.handle({"type": "world_update", "world_seq": 1,
+                                "toggles": [[int(toggled), 1]]})
+                fleet.free[toggled] = False
+            fleet.transitions()
+            req = {"type": "plan_request", "seq": seq,
+                   "codec": pcodec.CODEC_NAME, "caps": [pcodec.CODEC_NAME],
+                   "data": pcodec.encode_b64(
+                       enc.encode_tick(seq, fleet.items()))}
+            r = {k: run.handle(req) for k, run in runners.items()}
+            check(r["cuda"]["data"] == r["cpu"]["data"], f"serve_sector: "
+                  f"cuda and cpu replies differ at seq {seq}")
+            rp = pcodec.decode_b64(r["cuda"]["data"])
+            check(fleet.certify(rp.idx, rp.pos), f"serve_sector: tick {seq} "
+                  f"moves are not certified")
+            fleet.adopt(rp.idx, rp.pos, rp.goal)
+        counts = _counts()
+    layers1 = _layer_counters()
+    parity = {"scenario": scn.name, "ticks": SERVE_SECTOR_PARITY_TICKS,
+              "identical_across_devices": True,
+              "world_toggle_cell": int(toggled),
+              "tasks_completed": fleet.completed,
+              "layer_counters_both_devices": {
+                  k: layers1[k] - layers0[k] for k in LAYER_COUNTERS},
+              "main_path_counts": counts}
+    check(counts["sweep"] > 0, "serve_sector: the cuda runner launched no "
+          "sweep_scan")
+    torch.cuda.empty_cache()
+    run = _serve(scenarios.MEDIUM, dev, SERVE_SECTOR_TICKS,
+                 keep_bytes=False, env={"JG_SECTOR": "1"})["out"]
+    out = {"parity": parity, "sector_1k_512": run,
+           "unset_1k_512": {k: unset[k] for k in (
+               "snapshot_ms", "tick_ms_p50", "tick_ms_p95",
+               "launches_per_tick", "host_syncs_per_tick")}}
+    emit("serve_sector_parity", **out)
+    check(run["layer_counters"]["solverd.sector_routes"] > 0,
+          "serve_sector: no corridor plan on the 1k-512 run")
+    check(run["main_path_counts"]["sweep"] > 0, "serve_sector: the 1k-512 "
+          "run launched no sweep_scan")
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_entry(name: str, replaces: str, tpu_kernel: str, launches: int,
                   rows: list, step_shape: list, card: str, **extra) -> dict:
     """One kernel of the kernels line; ``ms``, ``plain_ms`` and the bound
@@ -1357,6 +1903,13 @@ def main() -> int:
     tenants = phase_serve_tenants(dev)
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmpdir:
         phase_checkpoint(dev, tmpdir)
+    torch.cuda.empty_cache()
+    repair = phase_repair(dev, card)
+    sect = phase_sector(
+        dev, card, repair["full_recompute"]["sweeps_chunk1_ms_per_field"])
+    torch.cuda.empty_cache()
+    phase_serve_dynamic(dev)
+    phase_serve_sector(dev, serve_medium["unset"])
     served = {
         "sweep_scan": {
             "1k-512": serve_medium["unset"]["launches_per_tick"]["sweep"],
@@ -1400,6 +1953,11 @@ def main() -> int:
     ]
     for k in kernels:
         k["launches_per_served_tick"] = served[k["name"]]
+    kernels[0]["launches_per_repair_event"] = {
+        "wall": repair["sweep_scan_launches_per_wall_event"],
+        "door": repair["sweep_scan_launches_door_event"]}
+    kernels[0]["launches_per_sector_plan"] = \
+        sect["sweep_scan_launches_per_plan"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,13 @@ Package layout
 - ``core``     — grids, tasks, sampling, agent enums, ``SolverConfig``
 - ``models``   — the benchmark scenario ladder
 - ``ops``      — BFS distance / direction fields; ``sweep_kernel`` binds the
-  hand-written CUDA sweep in ``csrc/sweep_scan.cu``
+  hand-written CUDA sweep in ``csrc/sweep_scan.cu``, ``field_fused`` the
+  fused field kernel; ``field_repair`` (bounded-region repair of a field
+  after world toggles) and ``sector`` (the hierarchical sector planner)
 - ``solver``   — the TSWAP step (with its ``active`` lane mask), invariants,
   the offline MAPD loop and checkpoints
-- ``runtime``  — ``solverd``, the single-tenant serving daemon behind the
-  C++ manager's ``--solver=tpu``, and copies of the JAX package's
+- ``runtime``  — ``solverd``, the serving daemon (single- and
+  multi-tenant) behind the C++ manager's ``--solver=tpu``, and copies of the JAX package's
   JAX-free wire and bus modules (``plan_codec``, ``bus_client``, ...)
 - ``obs``      — copies of the JAX package's observability modules
   (the port's own registry and tracer)

@@ -74,7 +74,8 @@ def runner_state(runner) -> dict:
     service), as numpy arrays (``dirs`` as uint32 words) and plain Python
     values: the field cache and its LRU order, the goal pins, the resident
     lanes and their host mirrors, the field queue, the parked lanes, the
-    world log and the packed decoder's roster."""
+    world log with the repair mirrors, and the packed decoder's roster.
+    The sector planner's portal graph and corridor plans do not cross."""
     svc = runner.service
     lanes = {}
     for k in _LANES:
@@ -98,6 +99,11 @@ def runner_state(runner) -> dict:
         "world_seq": int(svc.world_seq),
         "world_log": [int(c) for c in svc.world_log],
         "dist_seq": {int(g): int(v) for g, v in svc.dist_seq.items()},
+        "keep_dist": bool(svc.keep_dist),
+        "dist_mirror": {int(g): np.array(v)
+                        for g, v in svc.dist_mirror.items()},
+        "dirs_mirror": {int(g): np.array(v)
+                        for g, v in svc.dirs_mirror.items()},
         "corrupt": dict(svc.corrupt),
         "defer_fields": bool(svc.defer_fields),
         "cache_hits": int(svc.cache_hits),
@@ -112,12 +118,15 @@ def runner_state(runner) -> dict:
 
 def load_runner(runner, state: Mapping) -> None:
     """Put :func:`runner_state` output into the port's ``TickRunner``
-    (whose service was built on the same grid), on its service's
-    device."""
+    (whose service was built on the same grid), on its service's device.
+    A service with a sector planner is refused: its plans do not cross."""
     from p2p_distributed_tswap_tpu_torch.runtime.solverd import (
         FieldQueueEntry)
 
     svc = runner.service
+    if svc.sector is not None:
+        raise ValueError("load_runner: the sector planner's state does not "
+                         "hand off; build the service without JG_SECTOR")
     dev = svc.device
     dirs = state["dirs"]
     svc.dirs = (None if dirs is None else torch.from_numpy(
@@ -141,6 +150,9 @@ def load_runner(runner, state: Mapping) -> None:
     svc.world_seq = state["world_seq"]
     svc.world_log = list(state["world_log"])
     svc.dist_seq = dict(state["dist_seq"])
+    svc.keep_dist = state["keep_dist"]
+    svc.dist_mirror = {g: np.array(v) for g, v in state["dist_mirror"].items()}
+    svc.dirs_mirror = {g: np.array(v) for g, v in state["dirs_mirror"].items()}
     svc.corrupt = dict(state["corrupt"])
     svc.defer_fields = state["defer_fields"]
     svc.cache_hits = state["cache_hits"]

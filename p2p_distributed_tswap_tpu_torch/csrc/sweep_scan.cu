@@ -8,9 +8,12 @@
 // One kernel source takes any R, H, W >= 1: the TPU's 128-lane shape gate has
 // no counterpart here.
 //
-// What it computes, for d (R, H, W) int32 and one (H, W) uint8 mask shared by
-// all R fields (nonzero = blocked), along `axis` (1 = H, 2 = W), walking the
-// axis forward or in reverse, with INF = 2^30:
+// What it computes, for d (R, H, W) int32 and a uint8 mask (nonzero =
+// blocked), along `axis` (1 = H, 2 = W), walking the axis forward or in
+// reverse, with INF = 2^30.  The mask is one (H, W) plane shared by all R
+// fields (mask stride 0: the solver's fields, all on one grid) or one plane
+// per field (stride H * W: the repair and sector windows, each padded with
+// its own blocked cells):
 //
 //     run    = INF                       (before the first cell)
 //     run    = min(run + 1, d[i])        relax from the predecessor
@@ -23,7 +26,8 @@
 //
 // Bound on an H100: device-memory bytes.  Each cell is read once, written
 // once, and costs three integer operations, so a sweep moves 8 bytes per cell
-// (plus the mask, which stays in the 50 MB L2 across the batch) and sits far
+// (plus the mask: a shared plane stays in the 50 MB L2 across the batch, a
+// plane per field is one more byte per cell, read once) and sits far
 // below the card's operations-per-byte line.  What keeps a sweep from that
 // bound is latency: the recurrence is a dependent chain along the axis, and
 // the in-step replans sweep only R = 4 fields.  So the design keeps whole
@@ -61,8 +65,9 @@
 //   Both: positions past the end of an axis read a cell inside it, so
 //     every load is unconditional and none waits behind another's use.
 //
-// Interface: plain C, loaded with ctypes.  The caller passes device pointers
-// and the CUDA stream; the launch is asynchronous and allocates nothing.
+// Interface: plain C, loaded with ctypes.  The caller passes device pointers,
+// the mask stride (0 or H * W, in cells) and the CUDA stream; the launch is
+// asynchronous and allocates nothing.
 // `sweep_scan` picks the layout; `sweep_scan_forced` takes it as (tile,
 // rows, bands), 0 = the chosen one (see Layout; along W only the tile),
 // for tests and measurement; `sweep_scan_layout` reports a layout without launching.
@@ -132,7 +137,8 @@ template <int TW, int BH>
 __global__ void __launch_bounds__(kMaxThreads)
     sweep_along_h(const int* __restrict__ d,
                   const uint8_t* __restrict__ blocked, int* __restrict__ out,
-                  long long R, int H, int W, int NB, int reverse) {
+                  long long R, int H, int W, long long mstride, int NB,
+                  int reverse) {
   __shared__ uint32_t sum[kMaxThreads];  // (tail | obstacle bit), band-major
   __shared__ int seg_carry[2][TW];       // carry into a segment, by parity
   const int c = threadIdx.x % TW;        // column in the tile
@@ -145,7 +151,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int x = static_cast<int>(blk % tiles) * TW + c;
     const bool col = x < W;  // columns past W load column W - 1, store none
     const int* dcol = d + r * plane + (col ? x : W - 1);
-    const uint8_t* mcol = blocked + (col ? x : W - 1);
+    const uint8_t* mcol = blocked + r * mstride + (col ? x : W - 1);
     int* ocol = out + r * plane + x;
     if (threadIdx.x < TW) seg_carry[0][threadIdx.x] = kInf;
     int parity = 0;
@@ -296,7 +302,8 @@ template <int kCells>
 __global__ void __launch_bounds__(kRowThreads)
     sweep_along_w(const int* __restrict__ d,
                   const uint8_t* __restrict__ blocked, int* __restrict__ out,
-                  long long rows, int H, int W, int reverse) {
+                  long long rows, int H, int W, long long mstride,
+                  int reverse) {
   constexpr int kChunk = 32 * kCells;
   constexpr int kChunks = kLaneCells / kCells;
   constexpr int kSegment = 32 * kLaneCells;
@@ -309,7 +316,7 @@ __global__ void __launch_bounds__(kRowThreads)
   for (long long row = first; row < rows; row += warps) {
     const int* dp = d + row * W;
     int* op = out + row * W;
-    const uint8_t* mp = blocked + (row % H) * W;
+    const uint8_t* mp = blocked + (row / H) * mstride + (row % H) * W;
     int carry = kInf;
     for (int s0 = 0; s0 < W; s0 += kSegment) {
       int v[kChunks][kCells];
@@ -414,7 +421,9 @@ struct Args {
   const uint8_t* m;
   int* o;
   long long R;
-  int H, W, reverse;
+  int H, W;
+  long long mstride;
+  int reverse;
   cudaStream_t s;
 };
 
@@ -426,17 +435,17 @@ template <int TW>
 void launch_bands(const Layout& L, const Args& a) {
   if (L.rows == 8) {
     sweep_along_h<TW, 8><<<grid_of(L), L.threads, 0, a.s>>>(
-        a.d, a.m, a.o, a.R, a.H, a.W, L.bands, a.reverse);
+        a.d, a.m, a.o, a.R, a.H, a.W, a.mstride, L.bands, a.reverse);
   } else {
     sweep_along_h<TW, 16><<<grid_of(L), L.threads, 0, a.s>>>(
-        a.d, a.m, a.o, a.R, a.H, a.W, L.bands, a.reverse);
+        a.d, a.m, a.o, a.R, a.H, a.W, a.mstride, L.bands, a.reverse);
   }
 }
 
 template <int kCells>
 void launch_rows(const Layout& L, const Args& a) {
   sweep_along_w<kCells><<<grid_of(L), L.threads, 0, a.s>>>(
-      a.d, a.m, a.o, a.R * a.H, a.H, a.W, a.reverse);
+      a.d, a.m, a.o, a.R * a.H, a.H, a.W, a.mstride, a.reverse);
 }
 
 void launch(int axis, const Layout& L, const Args& a) {
@@ -471,9 +480,11 @@ extern "C" int sweep_scan_layout(long long R, long long H, long long W,
 
 extern "C" int sweep_scan_forced(const void* d, const void* blocked, void* out,
                                  long long R, long long H, long long W,
-                                 int axis, int reverse, int tile, int rows,
-                                 int bands, void* stream) {
-  const bool aligned = W % 4 == 0 &&
+                                 long long mstride, int axis, int reverse,
+                                 int tile, int rows, int bands,
+                                 void* stream) {
+  if (mstride < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = W % 4 == 0 && mstride % 4 == 0 &&
                        reinterpret_cast<uintptr_t>(d) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(blocked) % 4 == 0;
@@ -487,6 +498,7 @@ extern "C" int sweep_scan_forced(const void* d, const void* blocked, void* out,
                R,
                static_cast<int>(H),
                static_cast<int>(W),
+               mstride,
                reverse,
                static_cast<cudaStream_t>(stream)};
   launch(axis, L, a);
@@ -494,8 +506,9 @@ extern "C" int sweep_scan_forced(const void* d, const void* blocked, void* out,
 }
 
 extern "C" int sweep_scan(const void* d, const void* blocked, void* out,
-                          long long R, long long H, long long W, int axis,
-                          int reverse, void* stream) {
-  return sweep_scan_forced(d, blocked, out, R, H, W, axis, reverse, 0, 0, 0,
-                           stream);
+                          long long R, long long H, long long W,
+                          long long mstride, int axis, int reverse,
+                          void* stream) {
+  return sweep_scan_forced(d, blocked, out, R, H, W, mstride, axis, reverse,
+                           0, 0, 0, stream);
 }

@@ -41,9 +41,10 @@ PACKED_STAY = sum(DIR_STAY << (4 * i) for i in range(PACKED_LANES))
 def _sweep(d: torch.Tensor, blocked: torch.Tensor, axis: int,
            reverse: bool) -> torch.Tensor:
     """One directional sweep of the (R, H, W) int32 batch ``d`` against the
-    one (H, W) uint8 mask ``blocked`` (nonzero = obstacle), along ``axis``
-    (1 = H, 2 = W): the CUDA kernel for a CUDA tensor, the plain doubling
-    scan (the JAX package's ``_seg_min_scan`` + ``_sweep_xla``, ported in
+    uint8 mask ``blocked`` (nonzero = obstacle; (H, W) shared by every
+    field, or (R, H, W) one per field), along ``axis`` (1 = H, 2 = W): the
+    CUDA kernel for a CUDA tensor, the plain doubling scan (the JAX
+    package's ``_seg_min_scan`` + ``_sweep_xla``, ported in
     ``ops.sweep_kernel``) for a CPU tensor."""
     if d.is_cuda:
         return sweep_kernel.sweep_scan(d, blocked, axis, reverse)
@@ -55,7 +56,8 @@ def _sweep(d: torch.Tensor, blocked: torch.Tensor, axis: int,
 def _fixpoint(d: torch.Tensor, free: torch.Tensor, max_rounds: int,
               sweep=_sweep) -> torch.Tensor:
     """Sweep rounds over the (R, H, W) batch ``d`` until nothing changes (or
-    ``max_rounds``), each directional sweep by ``sweep``."""
+    ``max_rounds``), each directional sweep by ``sweep``; ``free`` is one
+    (H, W) mask for every field or an (R, H, W) mask per field."""
     blocked = (~free).to(torch.uint8).contiguous()
     changed, i = True, 0
     while changed and i < max_rounds:
@@ -66,6 +68,21 @@ def _fixpoint(d: torch.Tensor, free: torch.Tensor, max_rounds: int,
         changed = hostsync.flag(torch.any(nd != d))
         d, i = nd, i + 1
     return d
+
+
+def window_fixpoint(seed: torch.Tensor, free_w: torch.Tensor) -> torch.Tensor:
+    """Early fixpoint of the directional sweeps over a batch of windows, on
+    the device of ``seed``: the counterpart of the JAX package's
+    ``field_repair.window_fixpoint``, the same round order and the same cap
+    of 128 rounds.
+
+    Args:
+      seed: (N, h, w) int32 window values (INF where unknown or blocked).
+      free_w: (h, w) bool, one mask for every window (a repair window), or
+        (N, h, w), one per window (the sector planner's padded windows).
+
+    Returns the (N, h, w) int32 fixpoint."""
+    return _fixpoint(seed, free_w, 128)
 
 
 def distance_fields(free: torch.Tensor, goals_idx: torch.Tensor,

@@ -85,20 +85,24 @@ def _sweep_xla(d: torch.Tensor, free: torch.Tensor, axis: int, reverse: bool,
 def sweep_plain(d: torch.Tensor, blocked: torch.Tensor, axis: int,
                 reverse: bool) -> torch.Tensor:
     """Plain PyTorch version of :func:`sweep_scan`: same arguments, same
-    result, on any device."""
+    result, on any device.  A 2-D ``blocked`` is shared by every field, a
+    3-D one is each field's own."""
     n = d.shape[axis]
     shape = [1, 1, 1]
     shape[axis] = n
     coord = torch.arange(n, dtype=torch.int32, device=d.device).reshape(shape)
     if reverse:
         coord = -coord
-    return _sweep_xla(d, (blocked == 0)[None], axis, reverse, coord)
+    free = blocked == 0
+    if free.ndim == 2:
+        free = free[None]
+    return _sweep_xla(d, free, axis, reverse, coord)
 
 
 def _fn(name: str = "sweep_scan"):
     args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     if name == "sweep_scan_forced":
         args += [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     return cuda_build.function(name, args + [ctypes.c_void_p])
@@ -139,7 +143,8 @@ def _check(d: torch.Tensor, blocked: torch.Tensor, axis: int) -> None:
     if d.dtype != torch.int32 or blocked.dtype != torch.uint8:
         raise TypeError("sweep_scan: need int32 d and uint8 blocked, got "
                         f"{d.dtype} and {blocked.dtype}")
-    if d.ndim != 3 or blocked.shape != d.shape[1:] or min(d.shape) < 1:
+    if d.ndim != 3 or blocked.shape not in (d.shape[1:], d.shape) \
+            or min(d.shape) < 1:
         raise ValueError(f"sweep_scan: bad shapes d={tuple(d.shape)} "
                          f"blocked={tuple(blocked.shape)}")
     if not (d.is_contiguous() and blocked.is_contiguous()):
@@ -155,10 +160,11 @@ def _launch(d: torch.Tensor, blocked: torch.Tensor, axis: int, reverse: bool,
     fn = _fn("sweep_scan_forced" if forced else "sweep_scan")
     out = torch.empty_like(d)
     r, h, w = d.shape
+    mstride = 0 if blocked.ndim == 2 else h * w  # shared plane or per field
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         rc = fn(d.data_ptr(), blocked.data_ptr(), out.data_ptr(), r, h, w,
-                axis, int(reverse), *forced, stream)
+                mstride, axis, int(reverse), *forced, stream)
     if rc != 0:
         raise RuntimeError(f"sweep_scan: launch failed with CUDA error {rc}")
     launches += 1
@@ -171,7 +177,8 @@ def sweep_scan(d: torch.Tensor, blocked: torch.Tensor, axis: int,
 
     Args:
       d: (R, H, W) int32, contiguous, on a CUDA device; values in [0, INF].
-      blocked: (H, W) uint8, contiguous, same device; nonzero = obstacle.
+      blocked: uint8, contiguous, same device; nonzero = obstacle.  (H, W):
+        one mask shared by every field; (R, H, W): each field's own.
       axis: 1 (along H) or 2 (along W).
       reverse: walk the axis from its end.
 

@@ -42,13 +42,17 @@ axis of the step (``solver/step.py``).  Replies are byte-identical to the
 JAX multi-tenant daemon's.  ``--multi-tenant`` also admits tenants that
 announce themselves with ``tenant_hello`` on ``solver.admit``.
 
+Dynamic worlds (``world_update`` frames) repair stale cached rows as the
+JAX daemon does: incrementally from host distance mirrors
+(``ops.field_repair``; ``JG_DYNAMIC_WORLD=1`` keeps mirrors from the start,
+unset from the first accepted toggle), or by a full recompute where no
+mirror exists or the dirty region overflows.  ``JG_SECTOR=1`` plans fresh
+goals on corridors of the sector graph (``ops.sector``) instead of full
+sweeps.  Both run their window sweeps through ``sweep_scan`` on the card.
+
 Not ported yet, refused loudly rather than served another way: the mesh
 (``--mesh`` / ``JG_SOLVER_MESH``, with or without tenants, ROADMAP queue 1
-item 7) and the sector planner (``JG_SECTOR=1``, item 6).  A world toggle
-repairs a stale cached row by one full recompute, which equals the JAX
-daemon's incremental repair row for row (``field_repair``'s contract, item
-6); only the counters differ (``solverd.field_repair_fallbacks`` counts
-every repair).
+item 7).
 
 Usage: python -m p2p_distributed_tswap_tpu_torch.runtime.solverd
            [--port 7400] [--map FILE] [--capacity-min 16] [--warm N]
@@ -85,11 +89,15 @@ from p2p_distributed_tswap_tpu_torch.obs import events as obs_events
 from p2p_distributed_tswap_tpu_torch.obs import flightrec
 from p2p_distributed_tswap_tpu_torch.obs.beacon import MetricsBeacon
 from p2p_distributed_tswap_tpu_torch.obs.heartbeat import TICK_BUDGET_MS
+from p2p_distributed_tswap_tpu_torch.ops import field_repair
+from p2p_distributed_tswap_tpu_torch.ops import sector
 from p2p_distributed_tswap_tpu_torch.ops.distance import (
     DIR_DXDY,
     DIR_STAY,
     PACKED_STAY,
     direction_fields,
+    directions_from_distance,
+    distance_fields,
     pack_directions,
     packed_cells,
 )
@@ -106,12 +114,6 @@ _SINGLE_DEVICE_MESH = ("", "1", "1x1")
 ADMIT_TOPIC = "solver.admit"
 # Frames the multi-tenant loop drains behind the first of a burst.
 TENANT_DRAIN_MAX = 256
-
-
-def sector_requested() -> bool:
-    """``JG_SECTOR`` asks for the sector planner (as the JAX package reads
-    it), which is not ported yet."""
-    return os.environ.get("JG_SECTOR", "") not in ("", "0", "false")
 
 
 def _pad_pow2_chunk(min_chunk: int, *arrays):
@@ -202,13 +204,18 @@ class PlanService:
     # calls jump the whole queue, so fresh-goal churn cannot starve them.
     WORLD_LOG_MAX = 4096
     FIELD_QUEUE_MAX_AGE = 8
+    # Host repair-mirror budget: dist (int32) + dirs (uint8) = 5
+    # bytes/cell/goal, unpacked.  A goal whose mirror is evicted keeps its
+    # packed row; its next repair is one full recompute.
+    MIRROR_BYTES = 256 << 20
+    # Start-cell hints kept per goal for the sector planner: more distinct
+    # lane positions in one corridor add sectors, not route information
+    # (plan_goal folds at most sector.MAX_PLAN_STARTS per call; later
+    # lanes re-enter lazily).
+    SECTOR_HINTS_MAX = 64
 
     def __init__(self, grid: Grid, capacity_min: int = 16,
                  field_cache: int = 4096, device=None):
-        if sector_requested():
-            raise RuntimeError(
-                "JG_SECTOR: the sector planner is not ported yet (ROADMAP "
-                "queue 1 item 6); unset JG_SECTOR")
         self.device = resolve_device(device)
         self.grid = grid
         self.capacity_min = capacity_min
@@ -219,8 +226,14 @@ class PlanService:
         self.goal_rows: "OrderedDict[int, int]" = OrderedDict()
         self.dirs: Optional[torch.Tensor] = None  # (rows, pc) packed int32
         # Dynamic world: obstacle cells toggle mid-run via world_update
-        # frames; JG_DYNAMIC_WORLD=0 ignores them (no bookkeeping at all).
-        self.dynamic_world = os.environ.get("JG_DYNAMIC_WORLD", "") != "0"
+        # frames.  JG_DYNAMIC_WORLD=0 ignores them (no bookkeeping at all);
+        # =1 keeps dist/dirs host mirrors from the start, so the first
+        # toggle already repairs incrementally; unset turns mirror-keeping
+        # on at the first accepted update (rows swept before it then repair
+        # by one full recompute each).
+        env_dw = os.environ.get("JG_DYNAMIC_WORLD", "")
+        self.dynamic_world = env_dw != "0"
+        self.keep_dist = env_dw == "1"
         registry.get_registry().gauge("solverd.world_seq", 0)
         registry.get_registry().gauge("solverd.dynamic_world",
                                       1 if self.dynamic_world else 0)
@@ -231,7 +244,22 @@ class PlanService:
         self.free = torch.from_numpy(self.free_np.copy()).to(self.device)
         self.world_seq = 0
         self.world_log: List[int] = []      # toggled cells, in order
+        self.dist_mirror: Dict[int, np.ndarray] = {}  # goal -> (H,W) i32
+        self.dirs_mirror: Dict[int, np.ndarray] = {}  # goal -> (H,W) u8
         self.dist_seq: Dict[int, int] = {}  # goal -> log length at sweep
+        self.max_mirrors = max(16, self.MIRROR_BYTES // (5 * grid.num_cells))
+        # Sector planner: with JG_SECTOR=1 a fresh goal gets a corridor plan
+        # instead of a full-grid sweep; unset, self.sector stays None and
+        # no sector branch runs.  The planner holds free_np by reference:
+        # apply_world_update mutates the mask in place, then repairs the
+        # portal graph with apply_toggles.
+        self.sector: Optional[sector.SectorPlanner] = None
+        self.sector_hints: Dict[int, set] = {}  # goal -> start cells
+        if sector.sector_enabled():
+            self.sector = sector.SectorPlanner(self.free_np,
+                                               device=self.device)
+            registry.get_registry().gauge("solverd.sector_cells",
+                                          self.sector.s)
         self.queue_clock = 0                # process_field_queue calls
         self._last_cap = 0
         # device-resident fleet state (packed fast path); host mirrors stay
@@ -275,21 +303,64 @@ class PlanService:
         return pack_directions(
             direction_fields(self.free, goals).reshape(goals.shape[0], -1))
 
+    def _fields_dist(self, goals: torch.Tensor) -> tuple:
+        """The dynamic-world variant of :meth:`_fields`: the packed rows,
+        and the (G, H, W) int32 distances and uint8 codes the host repair
+        mirrors start from.  Always through the sweeps, ``MAPD_FUSED`` or
+        not, as in the JAX package."""
+        d = distance_fields(self.free, goals)
+        dirs = directions_from_distance(d, self.free)
+        return pack_directions(dirs.reshape(goals.shape[0], -1)), d, dirs
+
     def _rows_index(self, rows) -> torch.Tensor:
         return torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
 
     def _drop_goal(self, g: int) -> int:
-        """Evict one cached goal row; returns the freed row index."""
+        """Evict one cached goal row: cache entry plus any dynamic-world
+        host mirrors and sector plan.  Returns the freed row index."""
         row = self.goal_rows.pop(g)
+        self.dist_mirror.pop(g, None)
+        self.dirs_mirror.pop(g, None)
         self.dist_seq.pop(g, None)
+        if self.sector is not None:
+            self.sector.forget(g)
+            self.sector_hints.pop(g, None)
         return row
+
+    def _store_mirror(self, g: int, dist_row: np.ndarray,
+                      dirs_row: np.ndarray) -> None:
+        """Keep one goal's repair mirrors, within budget (oldest-first
+        eviction; an evicted goal's next repair full-recomputes) and as
+        copies."""
+        if g not in self.dist_mirror:
+            while len(self.dist_mirror) >= self.max_mirrors:
+                victim = next(iter(self.dist_mirror))
+                self.dist_mirror.pop(victim)
+                self.dirs_mirror.pop(victim, None)
+                registry.get_registry().count("solverd.mirror_evictions")
+        self.dist_mirror[g] = np.array(dist_row)
+        self.dirs_mirror[g] = np.array(dirs_row)
+
+    def _write_rows(self, rows, packed_np: np.ndarray) -> None:
+        """Write host-packed uint32 rows (repairs, corridor plans) into
+        the cache rows ``rows``, in place (see :meth:`_sweep_into_rows`);
+        the device words are int32 with the same bits."""
+        self.dirs[self._rows_index(rows)] = torch.from_numpy(
+            np.ascontiguousarray(packed_np).view(np.int32)).to(self.device)
 
     def _sweep_into_rows(self, goals: List[int], rows: List[int]) -> None:
         """Sweep ``goals`` in pow2 chunks no larger than FIELD_CHUNK and
         write their packed rows into ``rows`` with one scatter, in place
         (the step never writes ``dirs``, and the device stream orders this
         write after every read of a step already dispatched).  Shared by
-        the fresh-sweep path and the repair recompute."""
+        the fresh-sweep path and the repair recompute.  In dynamic mode
+        the host repair mirrors record per goal; with the sector planner
+        on, goals it can corridor-plan never reach the full sweep
+        (:meth:`_sector_sweep` peels them off first)."""
+        if self.sector is not None:
+            goals, rows = self._sector_sweep(goals, rows)
+            if not goals:
+                return
         parts = []
         o, c = 0, self.FIELD_CHUNK
         while o < len(goals):
@@ -299,12 +370,83 @@ class PlanService:
             chunk = goals[o:o + take]
             padded = chunk + [chunk[-1]] * (size - take)
             gvec = torch.tensor(padded, dtype=_I32, device=self.device)
-            parts.append(self._fields(gvec)[:take])
+            if self.keep_dist:
+                packed, dist, dirs = self._fields_dist(gvec)
+                parts.append(packed[:take])
+                dist_np = dist[:take].cpu().numpy()
+                dirs_np = dirs[:take].cpu().numpy()
+                for j, g in enumerate(chunk):
+                    self._store_mirror(g, dist_np[j], dirs_np[j])
+            else:
+                parts.append(self._fields(gvec)[:take])
             o += take
         for g in goals:
             self.dist_seq[g] = len(self.world_log)
         fields = parts[0] if len(parts) == 1 else torch.cat(parts)
         self.dirs[self._rows_index(rows)] = fields
+
+    # -- hierarchical sector planning ---------------------------------------
+
+    def _sector_hint(self, goal: int, pos: int) -> None:
+        """Record one lane position as a corridor start for ``goal``'s
+        next sector plan (no-op when the planner is off or the goal is the
+        STAY pseudo-goal)."""
+        if self.sector is None or goal == -1:
+            return
+        hs = self.sector_hints.setdefault(int(goal), set())
+        if len(hs) < self.SECTOR_HINTS_MAX:
+            hs.add(int(pos))
+
+    def _sector_sweep(self, goals: List[int], rows: List[int]
+                      ) -> Tuple[List[int], List[int]]:
+        """Corridor-plan as many of ``goals`` as the planner can (consuming
+        the start hints recorded at state-application time), write their
+        packed rows in one scatter, and return the remainder for the
+        full-sweep path.  A goal with no recorded start falls back to the
+        full sweep (``solverd.sector_fallbacks``): that row is whole-grid
+        exact."""
+        reg = registry.get_registry()
+        rem_g: List[int] = []
+        rem_r: List[int] = []
+        srows: List[int] = []
+        packed: List[np.ndarray] = []
+        for g, r in zip(goals, rows):
+            starts = self.sector_hints.pop(g, ())
+            plan = self.sector.plan_goal(g, starts)
+            if plan is None:
+                rem_g.append(g)
+                rem_r.append(r)
+                reg.count("solverd.sector_fallbacks")
+                continue
+            srows.append(r)
+            packed.append(plan.packed)
+            self.dist_seq[g] = len(self.world_log)
+            reg.count("solverd.sector_routes")
+            reg.observe("solverd.sector_plan_ms", self.sector.last_plan_ms)
+        if srows:
+            self._write_rows(srows, np.stack(packed))
+        return rem_g, rem_r
+
+    def _sector_reenter(self, goal: int, pos: int) -> None:
+        """Extend ``goal``'s corridor when a lane reads STAY outside it:
+        one plan_goal call folds the lane's cell (plus any hints banked
+        since the last plan) into the existing corridor and rewrites the
+        goal's cached row in place.  plan_goal plans against the live mask
+        at the planner's current epoch, so a re-entry also heals
+        staleness and the world stamp advances."""
+        if self.sector is None or not self.sector.manages(goal):
+            return
+        if not self.sector.needs_reentry(goal, pos):
+            return
+        starts = self.sector_hints.pop(goal, set()) | {int(pos)}
+        plan = self.sector.plan_goal(goal, starts)
+        if plan is None:
+            return
+        self.dist_seq[goal] = len(self.world_log)
+        reg = registry.get_registry()
+        reg.count("solverd.sector_reentries")
+        reg.observe("solverd.sector_plan_ms", self.sector.last_plan_ms)
+        self._write_rows([self.goal_rows[goal]], plan.packed[None])
 
     def _is_stale(self, g: int) -> bool:
         """A cached row swept before the latest world toggle no longer
@@ -352,18 +494,57 @@ class PlanService:
             self._repair_goals(stale)
 
     def _repair_goals(self, goals: List[int]) -> None:
-        """Bring stale cached rows up to the live mask by one full
-        recompute each, into the same rows (the JAX daemon's fallback
-        branch; its incremental repair gives the same rows)."""
-        fallback = [g for g in goals
-                    if g in self.goal_rows and self._is_stale(g)]
-        if not fallback:
-            return
+        """Bring stale cached rows up to the live mask: bounded-region
+        incremental repair (``ops.field_repair``, big windows swept on the
+        service's device) where a dist mirror and the toggle suffix exist,
+        a full recompute otherwise or when the dirty region overflows.  One
+        scatter for every repaired packed row."""
         reg = registry.get_registry()
-        reg.count("solverd.field_repair_fallbacks", len(fallback))
-        reg.count("solverd.field_sweeps", len(fallback), cause="repair")
-        self._sweep_into_rows(fallback,
-                              [self.goal_rows[g] for g in fallback])
+        rows, packed_rows = [], []
+        fallback = []
+        h, _w = self.free_np.shape
+        for g in goals:
+            if g not in self.goal_rows or not self._is_stale(g):
+                continue
+            seq = self.dist_seq.get(g, -1)
+            mirror = self.dist_mirror.get(g)
+            res = None
+            if mirror is not None and 0 <= seq <= len(self.world_log):
+                t0 = time.perf_counter()
+                res = field_repair.repair_field(mirror, self.free_np,
+                                                self.world_log[seq:],
+                                                device=self.device)
+                reg.observe("solverd.field_repair_ms",
+                            1000.0 * (time.perf_counter() - t0))
+            if res is None:
+                fallback.append(g)
+                continue
+            new_dist, (y0, y1, x0, x1) = res
+            # direction codes change only where distances (or their row
+            # neighbours') did: re-derive the band, repack the whole row on
+            # the host
+            b0, b1 = max(0, y0 - 1), min(h, y1 + 1)
+            dirs_m = self.dirs_mirror[g]
+            if b1 > b0:
+                dirs_m[b0:b1] = field_repair.directions_np(
+                    new_dist, self.free_np, b0, b1)
+            self.dist_mirror[g] = new_dist
+            self.dist_seq[g] = len(self.world_log)
+            rows.append(self.goal_rows[g])
+            packed_rows.append(field_repair.pack_rows_np(
+                dirs_m.reshape(-1)))
+            reg.count("solverd.field_repairs")
+            reg.count("solverd.field_sweeps", cause="repair")
+        if rows:
+            self._write_rows(rows, np.stack(packed_rows))
+        if fallback:
+            # full recompute repairs: recompute into the SAME rows (the
+            # fresh-sweep path would allocate new ones), then re-mirror
+            reg.count("solverd.field_repair_fallbacks", len(fallback))
+            reg.count("solverd.field_sweeps", len(fallback),
+                      cause="repair")
+            self._sweep_into_rows(fallback,
+                                  [self.goal_rows[g] for g in fallback])
 
     # -- stateless legacy path (JSON wire) --------------------------------
 
@@ -374,6 +555,15 @@ class PlanService:
         cap = self._capacity(n)
         t_plan0 = time.perf_counter()
         goals = [g for _, _, g in agents]
+        if self.sector is not None:
+            # cached goals get a corridor re-entry check for each agent
+            # position; fresh ones bank the positions as corridor starts
+            # for the sweep below
+            for _, p, g in agents:
+                if g in self.goal_rows:
+                    self._sector_reenter(g, int(p))
+                else:
+                    self._sector_hint(g, int(p))
         with trace.span("solverd.cache_lookup", agents=n,
                         parent="solverd.tick"):
             # counts hits/misses and LRU-touches cached request goals
@@ -607,14 +797,22 @@ class PlanService:
             reg.count("solverd.prefetched_fields", len(missing))
         self._repair_stale([g for g, _ in popped])
 
-    def _slot_of(self, lane: int, goal: int) -> int:
+    def _slot_of(self, lane: int, goal: int,
+                 pos: Optional[int] = None) -> int:
         """Field row for a lane's goal; with deferred fields on, a missing
         row parks the lane on the STAY row and queues the sweep at the
         front of the queue.  A stale cached row serves as-is (the STAY
-        safety patch keeps it wall-legal) with its repair queued."""
+        safety patch keeps it wall-legal) with its repair queued.  ``pos``
+        (when the caller knows it) feeds the sector planner: a corridor
+        start hint for a goal not yet planned, a re-entry check for one
+        that is."""
         self._unwait(lane)
+        if pos is not None:
+            self._sector_hint(goal, pos)
         row = self.goal_rows.get(goal)
         if row is not None:
+            if pos is not None:
+                self._sector_reenter(goal, int(pos))
             if self._is_stale(goal):
                 self._queue_goal(goal, "repair")
             return row
@@ -692,6 +890,7 @@ class PlanService:
         if not changed:
             return 0
         self.world_seq += 1
+        self.keep_dist = True
         if len(self.world_log) + len(changed) > self.WORLD_LOG_MAX:
             # log compaction: every cached row becomes stale and repairs
             # on next touch
@@ -700,6 +899,16 @@ class PlanService:
             registry.get_registry().count("solverd.world_log_compactions")
         self.world_log.extend(c for c, _ in changed)
         self.free = torch.from_numpy(self.free_np.copy()).to(self.device)
+        if self.sector is not None:
+            # the mask already mutated in place above: repair the portal
+            # graph (dirty sectors and their neighbours); corridor plans
+            # re-derive through the staleness and repair queue below
+            t0 = time.perf_counter()
+            n_sect = self.sector.apply_toggles([c for c, _ in changed])
+            reg_s = registry.get_registry()
+            reg_s.count("solverd.sector_rebuilds", n_sect)
+            reg_s.observe("solverd.sector_repair_ms",
+                          1000.0 * (time.perf_counter() - t0))
         newly_blocked = [c for c, b in changed if b]
         if newly_blocked and self.dirs is not None:
             self._stay_patch(newly_blocked)
@@ -745,6 +954,19 @@ class PlanService:
                 cur[:, j] = np.where(hit, patched, cur[:, j])
         self.dirs[:, col_idx] = torch.from_numpy(cur.view(np.int32)).to(
             self.device)
+        # host dirs mirrors get the same overlay (a repair re-derives the
+        # exact band from the repaired distances later)
+        for dirs_m in self.dirs_mirror.values():
+            flat = dirs_m.reshape(-1)
+            for c in blocked_cells:
+                flat[c] = DIR_STAY
+                cy, cx = divmod(c, w)
+                for k, (dx, dy) in enumerate(DIR_DXDY):
+                    nx, ny = cx - dx, cy - dy
+                    if 0 <= nx < w and 0 <= ny < h:
+                        n = ny * w + nx
+                        if flat[n] == k:
+                            flat[n] = DIR_STAY
 
     # -- audit plane --------------------------------------------------------
 
@@ -845,11 +1067,17 @@ class PlanService:
             goals = [int(g) for g in upd.goal]
             for g in goals:
                 self._ref_goal(g, +1)
+            if self.sector is not None:
+                # corridor starts must be banked BEFORE the sweep below
+                # plans the fresh goals
+                for p, g in zip(upd.pos, goals):
+                    self._sector_hint(g, int(p))
             self._ensure_rows_or_defer(goals)
             self.h_pos[lanes] = upd.pos
             self.h_goal[lanes] = upd.goal
             self.h_slot[lanes] = np.fromiter(
-                (self._slot_of(int(l), g) for l, g in zip(lanes, goals)),
+                (self._slot_of(int(l), g, int(p))
+                 for l, g, p in zip(lanes, goals, upd.pos)),
                 np.int32, len(goals))
             self.h_active[lanes] = True
             # a snapshot IS the O(N) resync: one full upload (copies)
@@ -878,6 +1106,7 @@ class PlanService:
             if v is not None:
                 self._ref_goal(v[1], +1)
                 goals.append(v[1])
+                self._sector_hint(v[1], v[0])
         self._ensure_rows_or_defer(goals)
         m = len(final)
         lanes = np.fromiter(final.keys(), np.int32, m)
@@ -890,7 +1119,7 @@ class PlanService:
                 self._unwait(lane)
                 continue
             vp[k], vg[k] = v
-            vs[k] = self._slot_of(lane, v[1])
+            vs[k] = self._slot_of(lane, v[1], v[0])
             va[k] = True
         self.h_pos[lanes] = vp
         self.h_goal[lanes] = vg
@@ -1310,7 +1539,7 @@ class TickRunner:
             "dynamic_world": svc.dynamic_world,
             "world_seq": svc.world_seq,
             "world_log": len(svc.world_log),
-            "dist_mirrors": 0,
+            "dist_mirrors": len(svc.dist_mirror),
             "mesh": None,
             "last_phase_ms": {k: round(v, 3)
                               for k, v in svc.last_phase_ms.items()},
@@ -1496,15 +1725,22 @@ class TenantSlab:
                 if not s:
                     del self.wait_lanes[g]
 
-    def _slot_of(self, row: int, lane: int, goal: int) -> int:
+    def _slot_of(self, row: int, lane: int, goal: int,
+                 pos: Optional[int] = None) -> int:
         """Field row for a lane's goal; a missing row parks the lane on
         the shared STAY row and front-queues the sweep (a waiting agent
         outranks speculative prefetch).  Stale rows (world toggle since
-        their sweep) queue a repair, like the flat path."""
+        their sweep) queue a repair, like the flat path -- which also owns
+        the sector planner: hints and re-entry route through the shared
+        service, so corridors fold starts across tenants."""
         svc = self.service
         self._unwait(row, lane)
+        if pos is not None:
+            svc._sector_hint(goal, pos)
         r = svc.goal_rows.get(goal)
         if r is not None:
+            if pos is not None:
+                svc._sector_reenter(goal, int(pos))
             if svc._is_stale(goal):
                 svc._queue_goal(goal, "repair")
             return r
@@ -1580,12 +1816,15 @@ class TenantSlab:
             goals = [int(g) for g in upd.goal]
             for g in goals:
                 svc._ref_goal(g, +1)
+            if svc.sector is not None:
+                for p, g in zip(upd.pos, goals):
+                    svc._sector_hint(g, int(p))
             self._ensure_rows_or_defer(goals)
             self.h_pos[row, lanes] = upd.pos
             self.h_goal[row, lanes] = upd.goal
             self.h_slot[row, lanes] = np.fromiter(
-                (self._slot_of(row, int(l), g)
-                 for l, g in zip(lanes, goals)),
+                (self._slot_of(row, int(l), g, int(p))
+                 for l, g, p in zip(lanes, goals, upd.pos)),
                 np.int32, len(goals))
             self.h_active[row, lanes] = True
             self._row_set(row)  # a snapshot IS the O(fleet) row resync
@@ -1608,6 +1847,7 @@ class TenantSlab:
             if v is not None:
                 svc._ref_goal(v[1], +1)
                 goals.append(v[1])
+                svc._sector_hint(v[1], v[0])
         self._ensure_rows_or_defer(goals)
         m = len(final)
         lanes = np.fromiter(final.keys(), np.int32, m)
@@ -1620,7 +1860,7 @@ class TenantSlab:
                 self._unwait(row, lane)
                 continue
             vp[k], vg[k] = v
-            vs[k] = self._slot_of(row, lane, v[1])
+            vs[k] = self._slot_of(row, lane, v[1], v[0])
             va[k] = True
         self.h_pos[row, lanes] = vp
         self.h_goal[row, lanes] = vg
@@ -2195,7 +2435,7 @@ def multi_tenant_loop(bus, runner: MultiTenantRunner, slab: TenantSlab,
 def refusal(args) -> Optional[str]:
     """Why the daemon refuses to start with these arguments (or None): a
     custom plan topic in multi-tenant mode (as the JAX daemon refuses it),
-    the modes that are not ported yet, and a card that is missing."""
+    the mesh, which is not ported yet, and a card that is missing."""
     multi_tenant = args.tenants is not None or args.multi_tenant
     if multi_tenant and args.solver_topic != "solver":
         # tenant plan wires are namespaced topics; a custom flat topic
@@ -2206,9 +2446,6 @@ def refusal(args) -> Optional[str]:
     if (mesh or "").strip().lower() not in _SINGLE_DEVICE_MESH:
         return (f"mesh {mesh!r}: the multi-device planner is not ported "
                 f"yet (ROADMAP queue 1 item 7)")
-    if sector_requested():
-        return ("JG_SECTOR: the sector planner is not ported yet (ROADMAP "
-                "queue 1 item 6)")
     if not args.cpu and not torch.cuda.is_available():
         return ("CUDA is not available: the daemon plans on the card; pass "
                 "--cpu to plan on the CPU")
@@ -2231,8 +2468,13 @@ def warm(service: PlanService, grid: Grid, n_agents: int) -> int:
     service.plan([(f"warm{k}", int(sel[k]), int(sel[n + k]))
                   for k in range(n)])
     for size in (1, 2, 4):
-        service._fields(torch.full((size,), int(sel[0]), dtype=_I32,
-                                   device=service.device))
+        gvec = torch.full((size,), int(sel[0]), dtype=_I32,
+                          device=service.device)
+        # dynamic mode sweeps through the dist-returning variant
+        if service.keep_dist:
+            service._fields_dist(gvec)
+        else:
+            service._fields(gvec)
     if service.device.type == "cuda":
         torch.cuda.synchronize(service.device)
     return n

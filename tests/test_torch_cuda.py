@@ -1,6 +1,8 @@
-"""The port on the card: the CUDA kernels (the sweep and both instances of
-the fused field kernel) against their plain versions, and CUDA solves
-against CPU solves.
+"""The port on the card: the CUDA kernels (the sweep, with one mask for
+every field or one per field, and both instances of the fused field kernel)
+against their plain versions, CUDA solves against CPU solves, and the
+field repair and sector planner on the card against the same calls on the
+CPU.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -250,6 +252,169 @@ def test_wrapper_checks_dtype_shape_layout(cuda):
         sweep_kernel.sweep_scan(d, m, 0, False)
     with pytest.raises(ValueError):
         sweep_kernel.sweep_scan(d, m.cpu(), 1, False)
+
+
+def _per_field_inputs(seed, r, h, w, pad):
+    """(d, blocked) with one mask per field: each field's own random
+    obstacles and border, its seeds on its own free cells, and the last
+    ``pad`` fields fully blocked (the pow2 padding of a window batch)."""
+    rng = np.random.default_rng(seed)
+    free = rng.random((r, h, w)) > rng.uniform(0.05, 0.4, (r, 1, 1))
+    free[:, [0, -1], :] = False
+    free[:, :, [0, -1]] = False
+    if pad:
+        free[r - pad:] = False
+    d = np.where(rng.random((r, h, w)) > 0.95,
+                 rng.integers(0, 60, (r, h, w)), INF)
+    d = np.where(free, d, INF).astype(np.int32)
+    return torch.from_numpy(d), torch.from_numpy((~free).astype(np.uint8))
+
+
+@pytest.mark.parametrize("axis,reverse", DIRECTIONS)
+@pytest.mark.parametrize("r,h,w,pad", [
+    (5, 37, 53, 1), (8, 66, 66, 3), (16, 128, 128, 4), (3, 1025, 33, 1),
+    (2, 33, 1025, 0), (4, 31, 1, 1), (70000, 3, 5, 1000),
+    (512, 128, 128, 200), (8, 256, 256, 3)])
+def test_per_field_masks_match_plain(cuda, axis, reverse, r, h, w, pad):
+    """One mask per field (the repair and sector windows): ragged H and W,
+    fully blocked padded layers, and the sector planner's batch shapes."""
+    d, blocked = _per_field_inputs(r + h + w + axis + reverse, r, h, w, pad)
+    _check_sweep(cuda, d, blocked, axis, reverse)
+    # each field against its own 2-D mask through the shared-mask path
+    k = r - pad - 1 if r > pad else 0
+    want = sweep_kernel.sweep_plain(d[k:k + 1], blocked[k], axis, reverse)
+    got = sweep_kernel.sweep_scan(d.to(cuda), blocked.to(cuda), axis,
+                                  reverse)[k:k + 1]
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("forced", [
+    {"tile": 8, "rows": 8}, {"tile": 16, "rows": 16},
+    {"tile": 32, "rows": 8}, {"tile": 32, "rows": 16, "bands": 2}])
+def test_per_field_masks_in_every_along_h_layout(cuda, reverse, forced):
+    d, blocked = _per_field_inputs(len(forced) + reverse, 3, 300, 75, 1)
+    _check_sweep(cuda, d, blocked, 1, reverse, **forced)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cells", [1, 4])
+def test_per_field_masks_in_every_along_w_layout(cuda, reverse, cells):
+    d, blocked = _per_field_inputs(cells + reverse, 5, 21, 1028, 2)
+    _check_sweep(cuda, d, blocked, 2, reverse, tile=cells)
+
+
+def test_per_field_masks_never_reach_the_plain_version(cuda, monkeypatch):
+    """A CUDA batch with one mask per field launches the kernel on every
+    sweep of the window fixpoint; the plain version is never called."""
+    d, blocked = _per_field_inputs(3, 8, 66, 66, 3)
+    free = (blocked == 0).to(cuda)
+
+    def _plain(*a, **k):
+        raise AssertionError("sweep_plain called on the card")
+
+    want = distance.window_fixpoint(d, blocked == 0)
+    monkeypatch.setattr(sweep_kernel, "sweep_plain", _plain)
+    before, syncs = sweep_kernel.launches, hostsync.count
+    got = distance.window_fixpoint(d.to(cuda), free)
+    assert sweep_kernel.launches - before == 4 * (hostsync.count - syncs)
+    assert sweep_kernel.launches > before
+    assert torch.equal(got.cpu(), want)
+
+
+def test_wrapper_checks_per_field_mask_shapes(cuda):
+    d = torch.zeros((2, 4, 5), dtype=torch.int32, device=cuda)
+    for shape in ((3, 4, 5), (1, 4, 5), (2, 5, 4), (2, 4, 5, 1)):
+        m = torch.zeros(shape, dtype=torch.uint8, device=cuda)
+        with pytest.raises(ValueError):
+            sweep_kernel.sweep_scan(d, m, 1, False)
+    m = torch.zeros((2, 5, 4), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        sweep_kernel.sweep_scan(d, m.transpose(1, 2), 2, False)
+
+
+def test_repair_field_on_cuda_matches_cpu(cuda):
+    """A door opening into a closed room: the repair window grows until
+    it holds the room, past DIJKSTRA_MAX_CELLS, so on the card it sweeps by
+    ``sweep_scan`` (the card's window ceiling is half the grid), equal to
+    the same repair swept on the CPU and to a full recompute; a small
+    toggle stays on the host Dijkstra."""
+    from p2p_distributed_tswap_tpu_torch.ops import field_repair
+
+    h = w = 400
+    rng = np.random.default_rng(3)
+    free = rng.random((h, w)) > 0.1
+    free[150, 150:261] = free[260, 150:261] = False
+    free[150:261, 150] = free[150:261, 260] = False
+    goal = 5 * w + 5
+    free.reshape(-1)[goal] = True
+
+    def full(f):
+        return distance.distance_fields(
+            torch.from_numpy(f.copy()),
+            torch.tensor([goal], dtype=torch.int32)).numpy()[0]
+
+    dist = full(free)
+    door = 150 * w + 200
+    free.reshape(-1)[door] = True
+    cap = field_repair.default_max_window(h * w, cuda)
+    before = sweep_kernel.launches
+    got = field_repair.repair_field(dist, free, [door], device=cuda)
+    assert sweep_kernel.launches > before
+    assert got is not None
+    y0, y1, x0, x1 = got[1]
+    assert (y1 - y0) * (x1 - x0) > field_repair.DIJKSTRA_MAX_CELLS
+    want = field_repair.repair_field(dist, free, [door], max_window=cap,
+                                     device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[0], full(free))
+    cell = 40 * w + int(np.flatnonzero(free[40, 60:])[0]) + 60
+    free.reshape(-1)[cell] = False
+    before = sweep_kernel.launches
+    small = field_repair.repair_field(got[0], free, [cell], device=cuda)
+    assert sweep_kernel.launches == before
+    assert small is not None
+    np.testing.assert_array_equal(small[0], full(free))
+
+
+@pytest.mark.parametrize("s", [16, 32])
+def test_sector_planner_on_cuda_matches_cpu(cuda, s):
+    """The planner on the card (the jit path by default: window and
+    corridor fixpoints by ``sweep_scan`` with per-window masks) against the
+    same planner on the CPU, jit and host paths: portal graphs, plans and
+    toggles equal."""
+    from p2p_distributed_tswap_tpu_torch.ops import sector
+
+    rng = np.random.default_rng(s)
+    free = rng.random((96, 96)) > 0.2
+    masks = {k: free.copy() for k in ("cuda", "jit", "host")}
+    before = sweep_kernel.launches
+    planners = {
+        "cuda": sector.SectorPlanner(masks["cuda"], s=s, device=cuda),
+        "jit": sector.SectorPlanner(masks["jit"], s=s, use_jit=True,
+                                    device="cpu"),
+        "host": sector.SectorPlanner(masks["host"], s=s, use_jit=False,
+                                     device="cpu")}
+    assert planners["cuda"].use_jit and sweep_kernel.launches > before
+    state = planners["host"].graph_state()
+    assert all(p.graph_state() == state for p in planners.values())
+    cells = np.flatnonzero(free.reshape(-1))
+    for t in range(6):
+        st, gl = (int(c) for c in rng.choice(cells, 2, replace=False))
+        plans = {k: p.plan_goal(gl, [st], keep_dist=True)
+                 for k, p in planners.items()}
+        for k in ("jit", "host"):
+            np.testing.assert_array_equal(plans["cuda"].packed,
+                                          plans[k].packed)
+            np.testing.assert_array_equal(plans["cuda"].dist, plans[k].dist)
+    tog = [int(c) for c in rng.choice(cells, 12, replace=False)]
+    for k, p in planners.items():
+        for c in tog:
+            masks[k].reshape(-1)[c] = False
+        p.apply_toggles(tog)
+    state = planners["host"].graph_state()
+    assert all(p.graph_state() == state for p in planners.values())
 
 
 def test_direction_fields_on_cuda_match_cpu(cuda):

@@ -9,9 +9,10 @@
   copies of the JAX package's: the same code, the package name rewritten;
   the port's ``RuntimeConfig`` is the JAX package's, field for field.
 - The port's ``Fleet`` launcher spawns the port's daemon.
-- The daemon refuses the modes it does not serve yet (mesh, with or
-  without tenants, and the sector planner), a custom plan topic in
-  multi-tenant mode, and a missing card unless ``--cpu`` is given.
+- The daemon refuses the mode it does not serve yet (the mesh, with or
+  without tenants), a custom plan topic in multi-tenant mode, and a missing
+  card unless ``--cpu`` is given; it serves the sector planner
+  (``JG_SECTOR=1``), single- and multi-tenant.
 """
 
 import ast
@@ -60,6 +61,8 @@ MODULES = {
     "p2p_distributed_tswap_tpu_torch.ops.cuda_build",
     "p2p_distributed_tswap_tpu_torch.ops.distance",
     "p2p_distributed_tswap_tpu_torch.ops.field_fused",
+    "p2p_distributed_tswap_tpu_torch.ops.field_repair",
+    "p2p_distributed_tswap_tpu_torch.ops.sector",
     "p2p_distributed_tswap_tpu_torch.ops.sweep_kernel",
     "p2p_distributed_tswap_tpu_torch.solver.invariants",
     "p2p_distributed_tswap_tpu_torch.solver.mapd",
@@ -101,6 +104,31 @@ def test_port_and_chip_smoke_import_no_jax():
     assert int(count) >= 37
     assert MODULES <= set(names.split())
     assert bad.strip() == "[]", bad
+
+
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module({name!r})
+print(sorted(k for k in sys.modules
+             if k == "p2p_distributed_tswap_tpu"
+             or k.startswith("p2p_distributed_tswap_tpu.")
+             or k.split(".")[0] in ("jax", "jaxlib", "flax")))
+"""
+
+
+@pytest.mark.parametrize("name", ["ops.field_repair", "ops.sector"])
+def test_repair_and_sector_modules_import_no_jax(name):
+    """The dynamic-world repair and the sector planner, imported alone in
+    a fresh interpreter, bring in neither JAX nor the JAX package (the JAX
+    package's modules of the same names import jax at their top)."""
+    out = _python(_IMPORT_ONE.format(
+        name=f"p2p_distributed_tswap_tpu_torch.{name}"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    src = (REPO / "p2p_distributed_tswap_tpu_torch"
+           / (name.replace(".", "/") + ".py")).read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|p2p_distributed_tswap_tpu)"
+                         r"\b(?!_torch)", src, re.M)
 
 
 @pytest.fixture
@@ -146,6 +174,28 @@ def test_sweep_dispatch_takes_the_plain_version_on_cpu():
             assert torch.equal(
                 distance._sweep(d, blocked, axis, reverse),
                 sweep_kernel.sweep_plain(d, blocked, axis, reverse))
+
+
+def test_per_field_masks_dispatch_by_device():
+    """An (R, H, W) mask, one per field: a CPU batch takes the plain
+    version, equal to each field swept alone against its own mask, and
+    launches nothing; the kernel's wrapper refuses the CPU tensors."""
+    rng = np.random.default_rng(2)
+    d = torch.from_numpy(rng.integers(0, 9, (3, 5, 7)).astype(np.int32))
+    blocked = torch.from_numpy((rng.random((3, 5, 7)) > 0.7)
+                               .astype(np.uint8))
+    blocked[2] = 1  # a fully blocked padded layer
+    before = sweep_kernel.launches
+    for axis in (1, 2):
+        for reverse in (False, True):
+            got = distance._sweep(d, blocked, axis, reverse)
+            for k in range(3):
+                assert torch.equal(got[k:k + 1], sweep_kernel.sweep_plain(
+                    d[k:k + 1], blocked[k], axis, reverse))
+    assert (got[2] == distance.INF).all()
+    with pytest.raises(ValueError, match="CUDA"):
+        sweep_kernel.sweep_scan(d, blocked, 1, False)
+    assert sweep_kernel.launches == before
 
 
 def test_fused_wrapper_refuses_cpu_tensors():
@@ -230,15 +280,28 @@ def _solverd(args, env_extra=None, env_drop=()):
     ([], {"JG_SOLVER_MESH": "2x2"}, "item 7"),
     # multi-tenant mode is served; with a mesh it is the mesh's item
     (["--tenants", "a,b", "--mesh", "2"], {}, "item 7"),
-    (["--multi-tenant"], {"JG_SECTOR": "1"}, "item 6"),
-    ([], {"JG_SECTOR": "1"}, "item 6"),
-], ids=["mesh", "mesh-env", "tenants", "multi-tenant", "sector"])
+], ids=["mesh", "mesh-env", "tenants"])
 def test_daemon_refuses_what_is_not_ported(args, env_extra, item):
     out = _solverd([*args, "--cpu"], env_extra,
                    env_drop=("JG_SOLVER_MESH", "JG_SECTOR"))
     assert out.returncode == 2
     assert item in out.stderr and "not ported" in out.stderr
     assert "solverd up" not in out.stdout
+
+
+@pytest.mark.parametrize("multi_tenant", [True, False],
+                         ids=["multi-tenant", "sector"])
+def test_daemon_serves_the_sector_planner(monkeypatch, multi_tenant):
+    """``JG_SECTOR=1`` is served, single-tenant and with
+    ``--multi-tenant``: nothing in the arguments or the environment is
+    refused."""
+    from p2p_distributed_tswap_tpu_torch.runtime import solverd
+
+    monkeypatch.delenv("JG_SOLVER_MESH", raising=False)
+    monkeypatch.setenv("JG_SECTOR", "1")
+    args = types.SimpleNamespace(tenants=None, multi_tenant=multi_tenant,
+                                 solver_topic="solver", mesh=None, cpu=True)
+    assert solverd.refusal(args) is None
 
 
 @pytest.mark.parametrize("args", [
@@ -340,14 +403,26 @@ def test_daemon_without_cuda_refuses_the_cpu(no_cuda):
     assert "solverd up" not in out.stdout
 
 
-def test_plan_service_refuses_sector_and_missing_cuda(monkeypatch):
+def test_plan_service_builds_the_sector_planner_on_the_cpu(monkeypatch):
+    from p2p_distributed_tswap_tpu_torch.ops import sector
     from p2p_distributed_tswap_tpu_torch.runtime import solverd
 
     grid = Grid.from_ascii("\n".join(["." * 6] * 6))
     monkeypatch.setenv("JG_SECTOR", "1")
-    with pytest.raises(RuntimeError, match="item 6"):
-        solverd.PlanService(grid, device="cpu")
+    monkeypatch.delenv("JG_SECTOR_JIT", raising=False)
+    svc = solverd.PlanService(grid, device="cpu")
+    assert isinstance(svc.sector, sector.SectorPlanner)
+    assert svc.sector.device.type == "cpu" and not svc.sector.use_jit
+    assert svc.sector.free is svc.free_np  # toggles reach it in place
     monkeypatch.delenv("JG_SECTOR")
+    assert solverd.PlanService(grid, device="cpu").sector is None
+
+
+def test_plan_service_refuses_missing_cuda(monkeypatch):
+    from p2p_distributed_tswap_tpu_torch.runtime import solverd
+
+    grid = Grid.from_ascii("\n".join(["." * 6] * 6))
+    monkeypatch.delenv("JG_SECTOR", raising=False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             solverd.PlanService(grid)

@@ -9,7 +9,9 @@ bytes apart from ``duration_micros``: the packed ``data``, the JSON
 mode.  Covered: the legacy JSON wire with padded lanes on an occupied cell
 0, packed snapshots and deltas with joins, leaves and churn, a snapshot
 resync after a seq gap, deferred fields parked on the STAY row, LRU
-eviction under a small cache, world updates (STAY patch, then repair),
+eviction under a small cache, world updates (STAY patch, then repair;
+under ``JG_DYNAMIC_WORLD=1``, unset and ``JG_SECTOR=1``, with the repair
+mirrors and the repair, mirror and sector counters held equal too),
 malformed packets, the trace context echo, the audit lane / mirror /
 device / fields digests and drills, the pipelined order (request k+1
 scattered before reply k is fetched), and a hand-off of the serving state
@@ -24,6 +26,7 @@ import torch
 
 from p2p_distributed_tswap_tpu.core.grid import Grid as JaxGrid
 from p2p_distributed_tswap_tpu.obs import audit as jaudit
+from p2p_distributed_tswap_tpu.obs import registry as jreg
 from p2p_distributed_tswap_tpu.runtime import plan_codec as jpc
 from p2p_distributed_tswap_tpu.runtime import solverd as jsd
 from p2p_distributed_tswap_tpu_torch import convert
@@ -46,7 +49,8 @@ def _one_thread():
 @pytest.fixture(autouse=True)
 def _plain_env(monkeypatch):
     for k in ("JG_DYNAMIC_WORLD", "JG_DEFER_FIELDS", "JG_SECTOR",
-              "MAPD_FUSED", "JG_TRACE_CTX"):
+              "JG_SECTOR_CELLS", "JG_SECTOR_JIT", "MAPD_FUSED",
+              "JG_TRACE_CTX"):
         monkeypatch.delenv(k, raising=False)
 
 
@@ -294,6 +298,39 @@ def test_lru_eviction_under_a_small_cache():
     assert t.service.cache_misses > 8  # rows were reused
 
 
+def _toggle_world(j, t, fleet, rng, seq):
+    """A world_update to both runners (packed or JSON by seq): block a
+    free cell no agent stands on and open a wall cell.  The STAY patch
+    lands at once on every cached row; the repairs in the idle window."""
+    taken = {p for p, _ in fleet.fleet.values()}
+    cand = [c for c in fleet.cells if c not in taken]
+    cells = [int(rng.choice(cand))]
+    walls = np.flatnonzero(~j.service.free_np.reshape(-1))
+    if walls.size:
+        cells.append(int(rng.choice(walls)))
+    flags = [1] + [0] * (len(cells) - 1)
+    if seq % 2:
+        msg = {"type": "world_update", "world_seq": seq,
+               "codec": pc.CODEC_NAME,
+               "data": pc.encode_b64(pc.encode_world(seq, cells, flags))}
+    else:
+        msg = {"type": "world_update", "world_seq": seq,
+               "toggles": [[c, f] for c, f in zip(cells, flags)]}
+    assert j.handle(msg) is None and t.handle(msg) is None
+    assert j.service.world_seq == t.service.world_seq == seq
+    np.testing.assert_array_equal(j.service.free_np, t.service.free_np)
+    _assert_services_equal(j, t)
+    _assert_audit_equal(j, t)
+    blocked = [c for c, f in zip(cells, flags) if f]
+    for c in blocked:
+        fleet.cells = fleet.cells[fleet.cells != c]
+    opened = [c for c, f in zip(cells, flags) if not f]
+    fleet.cells = np.sort(np.concatenate([fleet.cells, opened])
+                          ).astype(fleet.cells.dtype)
+    _idle(j, t)
+    _assert_services_equal(j, t)
+
+
 def test_world_updates_patch_then_repair():
     free = _grid(side=16, seed=7)
     j, t = _pair(free, defer=True)
@@ -302,43 +339,89 @@ def test_world_updates_patch_then_repair():
     rng = np.random.default_rng(7)
 
     def toggle(seq, enc):
-        if seq % 3:
-            return
-        # block a free cell no agent stands on and open a wall cell
-        taken = {p for p, _ in fleet.fleet.values()}
-        cand = [c for c in fleet.cells if c not in taken]
-        cells = [int(rng.choice(cand))]
-        walls = np.flatnonzero(~j.service.free_np.reshape(-1))
-        if walls.size:
-            cells.append(int(rng.choice(walls)))
-        flags = [1] + [0] * (len(cells) - 1)
-        if seq % 2:
-            msg = {"type": "world_update", "world_seq": seq,
-                   "codec": pc.CODEC_NAME,
-                   "data": pc.encode_b64(pc.encode_world(seq, cells,
-                                                         flags))}
-        else:
-            msg = {"type": "world_update", "world_seq": seq,
-                   "toggles": [[c, f] for c, f in zip(cells, flags)]}
-        assert j.handle(msg) is None and t.handle(msg) is None
-        assert j.service.world_seq == t.service.world_seq == seq
-        np.testing.assert_array_equal(j.service.free_np, t.service.free_np)
-        # the STAY patch lands at once on every cached row
-        _assert_services_equal(j, t)
-        _assert_audit_equal(j, t)
-        blocked = [c for c, f in zip(cells, flags) if f]
-        for c in blocked:
-            fleet.cells = fleet.cells[fleet.cells != c]
-        opened = [c for c, f in zip(cells, flags) if not f]
-        fleet.cells = np.sort(np.concatenate([fleet.cells, opened])
-                              ).astype(fleet.cells.dtype)
-        _idle(j, t)  # repairs in the idle window
-        _assert_services_equal(j, t)
+        if seq % 3 == 0:
+            _toggle_world(j, t, fleet, rng, seq)
 
     _drive_packed(j, t, fleet, 13, defer=True, on_tick=toggle)
     counters = treg.get_registry().snapshot()["counters"]
     assert counters.get("solverd.field_repair_fallbacks", 0) > 0
     assert t.service.world_seq >= 12 and w == 16
+
+
+# Counters the dynamic-world and sector modes move, held equal across the
+# two daemons (each package has its own registry).
+MODE_COUNTERS = (
+    "solverd.field_repairs", "solverd.field_repair_fallbacks",
+    "solverd.mirror_evictions", 'solverd.field_sweeps{cause="repair"}',
+    "solverd.sector_routes", "solverd.sector_fallbacks",
+    "solverd.sector_reentries", "solverd.sector_rebuilds",
+    "solverd.world_toggles")
+
+
+def _mode_counters():
+    j = jreg.get_registry().snapshot()["counters"]
+    t = treg.get_registry().snapshot()["counters"]
+    return ({k: j.get(k, 0) for k in MODE_COUNTERS},
+            {k: t.get(k, 0) for k in MODE_COUNTERS})
+
+
+@pytest.mark.parametrize("env,defer", [
+    ({"JG_DYNAMIC_WORLD": "1"}, False),
+    ({}, True),
+    ({"JG_SECTOR": "1", "JG_SECTOR_CELLS": "8"}, True),
+    ({"JG_SECTOR": "1", "JG_SECTOR_CELLS": "8", "JG_DYNAMIC_WORLD": "1"},
+     False),
+], ids=["dynamic-world", "lazy-mirrors", "sector", "sector-dynamic-inline"])
+def test_world_modes_match_jax(monkeypatch, env, defer):
+    """A packed stream with fresh goals and a world update every other
+    tick, under ``JG_DYNAMIC_WORLD=1`` (mirrors from the start), unset
+    (mirrors from the first toggle on) and ``JG_SECTOR=1`` (8-cell
+    sectors): the same replies, the same repair mirrors (within a budget
+    small enough to evict), and the same repair, mirror and sector
+    counters and ``dist_mirrors`` as the JAX daemon."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    free = _grid(side=20, seed=13)
+    before = _mode_counters()
+    j, t = _pair(free, defer=defer, capacity_min=4)
+    assert (t.service.sector is None) == ("JG_SECTOR" not in env)
+    assert t.service.keep_dist == j.service.keep_dist == ("JG_DYNAMIC_WORLD"
+                                                          in env)
+    j.service.max_mirrors = t.service.max_mirrors = 5
+    fleet = Fleet(free, 7, seed=13)
+    rng = np.random.default_rng(13)
+
+    def toggle(seq, enc):
+        if seq % 2 == 0:
+            _toggle_world(j, t, fleet, rng, seq)
+        js, ts = j.service, t.service
+        assert sorted(ts.dist_mirror) == sorted(js.dist_mirror)
+        for g in ts.dist_mirror:
+            np.testing.assert_array_equal(ts.dist_mirror[g],
+                                          js.dist_mirror[g])
+            np.testing.assert_array_equal(ts.dirs_mirror[g],
+                                          js.dirs_mirror[g])
+        if ts.sector is not None:
+            assert ts.sector.graph_state() == js.sector.graph_state()
+            assert ts.sector_hints == js.sector_hints
+            assert sorted(ts.sector.plans) == sorted(js.sector.plans)
+        assert t.stats()["service"]["dist_mirrors"] == \
+            j.stats()["service"]["dist_mirrors"] == len(ts.dist_mirror)
+
+    _drive_packed(j, t, fleet, 14, defer=defer, on_tick=toggle, hints=True)
+    after = _mode_counters()
+    dj, dt = ({k: a[k] - b[k] for k in MODE_COUNTERS}
+              for a, b in zip(after, before))
+    assert dt == dj
+    assert dt["solverd.world_toggles"] > 0
+    if "JG_SECTOR" in env:
+        assert dt["solverd.sector_routes"] > 0
+        assert dt["solverd.sector_rebuilds"] > 0
+    else:
+        assert dt["solverd.field_repairs"] > 0
+        assert dt["solverd.mirror_evictions"] > 0
+    if not env:  # rows swept before the first toggle repair in full
+        assert dt["solverd.field_repair_fallbacks"] > 0
 
 
 def test_malformed_packets_are_contained():

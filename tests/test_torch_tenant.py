@@ -37,6 +37,7 @@ import torch
 from p2p_distributed_tswap_tpu.core.config import SolverConfig as JaxConfig
 from p2p_distributed_tswap_tpu.core.grid import Grid as JaxGrid
 from p2p_distributed_tswap_tpu.obs import audit as jaudit
+from p2p_distributed_tswap_tpu.obs import registry as jreg
 from p2p_distributed_tswap_tpu.ops import distance as jd
 from p2p_distributed_tswap_tpu.runtime import solverd as jsd
 from p2p_distributed_tswap_tpu.solver import step as jstep
@@ -62,7 +63,8 @@ def _one_thread():
 @pytest.fixture(autouse=True)
 def _plain_env(monkeypatch):
     for k in ("JG_DYNAMIC_WORLD", "JG_DEFER_FIELDS", "JG_SECTOR",
-              "MAPD_FUSED", "JG_TRACE_CTX", "JG_AUDIT"):
+              "JG_SECTOR_CELLS", "JG_SECTOR_JIT", "MAPD_FUSED",
+              "JG_TRACE_CTX", "JG_AUDIT"):
         monkeypatch.delenv(k, raising=False)
 
 
@@ -570,6 +572,78 @@ def test_world_update_reaches_every_tenant():
             f.churn()
     assert pair.t.slab.service.world_seq == 7  # the last toggle's epoch
     assert _counter("solverd.field_repair_fallbacks") > 0
+
+
+MODE_COUNTERS = (
+    "solverd.field_repairs", "solverd.field_repair_fallbacks",
+    "solverd.mirror_evictions", "solverd.sector_routes",
+    "solverd.sector_fallbacks", "solverd.sector_reentries",
+    "solverd.sector_rebuilds")
+
+
+def _mode_counters():
+    j = jreg.get_registry().snapshot()["counters"]
+    t = treg.get_registry().snapshot()["counters"]
+    return ({k: j.get(k, 0) for k in MODE_COUNTERS},
+            {k: t.get(k, 0) for k in MODE_COUNTERS})
+
+
+@pytest.mark.parametrize("env,defer", [
+    ({"JG_DYNAMIC_WORLD": "1"}, True),
+    ({}, False),
+    ({"JG_SECTOR": "1", "JG_SECTOR_CELLS": "6"}, True),
+], ids=["dynamic-world", "lazy-mirrors", "sector"])
+def test_tenant_world_modes_match_jax(monkeypatch, env, defer):
+    """Three tenants on one slab with world toggles on the operator plane,
+    under ``JG_DYNAMIC_WORLD=1``, unset and ``JG_SECTOR=1``: the same
+    publishes as the JAX daemon, and the same repair mirrors, portal graph,
+    start hints, and repair, mirror and sector counters.
+    The sector hooks run from the slab's state application (hints) and
+    its slot lookup (re-entry), shared across tenants."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    free = _world(side=18, seed=8)
+    before = _mode_counters()
+    pair = Pair(free, defer=defer)
+    js, ts = pair.j.slab.service, pair.t.slab.service
+    js.max_mirrors = ts.max_mirrors = 16
+    assert (ts.sector is None) == ("JG_SECTOR" not in env)
+    fleets = {f"t{k}": Fleet(free, 5 + k, seed=40 + k) for k in range(3)}
+    rng = np.random.default_rng(8)
+    for tick in range(10):
+        pub = pair.burst([(ns, f.request(hints=True))
+                          for ns, f in fleets.items()])
+        _deliver(fleets, pub)
+        if tick % 2 == 1:
+            taken = {p for f in fleets.values() for p, _ in f.fleet.values()}
+            cand = [c for c in fleets["t0"].cells if c not in taken]
+            cell = int(rng.choice(cand))
+            walls = np.flatnonzero(~js.free_np.reshape(-1))
+            opened = int(rng.choice(walls))
+            pair.world({"type": "world_update", "world_seq": tick,
+                        "toggles": [[cell, 1], [opened, 0]]})
+            for f in fleets.values():
+                f.cells = np.sort(np.append(f.cells[f.cells != cell],
+                                            opened))
+        pair.idle()
+        assert sorted(ts.dist_mirror) == sorted(js.dist_mirror)
+        for g in ts.dist_mirror:
+            np.testing.assert_array_equal(ts.dist_mirror[g],
+                                          js.dist_mirror[g])
+        if ts.sector is not None:
+            assert ts.sector.graph_state() == js.sector.graph_state()
+            assert ts.sector_hints == js.sector_hints
+        for f in fleets.values():
+            f.churn()
+    after = _mode_counters()
+    dj, dt = ({k: a[k] - b[k] for k in MODE_COUNTERS}
+              for a, b in zip(after, before))
+    assert dt == dj
+    if "JG_SECTOR" in env:
+        assert dt["solverd.sector_routes"] > 0
+        assert dt["solverd.sector_rebuilds"] > 0
+    else:
+        assert dt["solverd.field_repairs"] > 0
 
 
 # ---------------------------------------------------------------------------
