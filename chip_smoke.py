@@ -30,7 +30,10 @@ into the next.  Phases:
                windows): the sector planner's portal rebuild batch at
                S = 64 (512, 128, 128), its corridor batch (16, 128, 128)
                and (8, 256, 256), timed, with fully blocked padded layers,
-               and ragged shapes; the bound counts R masks.
+               and ragged shapes; the bound counts R masks.  Timed too:
+               the 4096² rung's chunk (8, 4096, 4096) and the bands of the
+               mesh at two tiles, (4, 512, 1024) of the flagship and
+               (8, 2048, 4096) of the 4096² warehouse.
 4. fused    — both instances of the fused field kernel == their plain
                version (``torch.equal``): multi at the congested rung's
                in-step and prime chunks on its warehouse, single at the
@@ -131,14 +134,55 @@ into the next.  Phases:
                world toggle, replies identical; then 1k-512 served for
                100 ticks, every tick certified, snapshot and tick ms
                beside the unset run of phase 12.
-22. kernels — one JSON object describing every kernel of the paths.
-23. the last line: ``{"ok": true, "device": {...}}``.
+22. extreme_lite_4096 — ``512a-4096-warehouse`` (seed 0) flat on the card:
+               the host chunked prime, then 20 steps, each certified;
+               prime seconds, ms/step, launches and host syncs per step,
+               peak memory; every step's (pos, goal, slot) kept.  (No
+               cuda-vs-cpu run: the plain scan at 4096² on a CPU does not
+               fit the time limit; phase 3 holds the kernel to its plain
+               version at (8, 4096, 4096) and phase 26 holds the solve to
+               a sharded one.)
+23. tiled_1024 — ``ops/tiled_distance.py`` on the flagship's 1024²
+               warehouse, 16 goals, on meshes of tiles 2, tiles 4 and
+               2 x 2: each equal to flat ``direction_fields``; rounds,
+               launches and ms beside the flat sweep.
+24. sharded_1k_512 — ``1k-512`` solved whole by ``solve_offline_sharded``
+               on a 4-shard agent mesh, unset and under
+               ``MAPD_FUSED=single``: paths and makespan equal phase 7's,
+               every step certified.
+25. sharded_flagship — the flagship on a 4-shard agent mesh: prime, the
+               warm-up and the window of phase 9, every step's (pos, goal,
+               slot) equal to phase 9's; ms/step beside it.
+26. sharded2d_4096 — ``512a-4096-warehouse`` on a 2 x 2 agents x tiles
+               mesh: the banded prime and 20 steps, each equal to phase
+               22's.
+27. serve_mesh_parity — the ref rung served on (2, 1) and (2, 2) meshes
+               beside a flat runner on the card, 60 ticks with a world
+               toggle at tick 30 (then the mesh's distance-returning
+               sweeps run): replies identical, per-shard resident bytes;
+               then 3 ref tenants on a (2, 1) mesh slab beside a flat
+               slab: publishes identical.
+28. serve_mesh_1k_512 — ``1k-512`` served on (2, 1) and (2, 2): a snapshot
+               and 100 delta ticks, each reply equal to the same tick of
+               phase 12's unset run; tick ms, ticks over 500 ms (none),
+               per-shard resident bytes.
+29. kernels — one JSON object describing every kernel of the paths, with
+               its launches per mesh step (phase 25) and per mesh tick
+               (phase 28, 2 x 2).
+30. the last line: ``{"ok": true, "device": {...}}``.
 
-Each path (phase 9 for ``sweep_scan``, 8 for the multi instance, 10 for the
-single instance, each served run of 12-16 and 20-21 for the kernels it
-takes, and the repair and sector phases 18-19) is driven with every
-kernel's and the host syncs' counts set to 0 just before it and read just
-after it (in phase 16 around each super-step burst, not around the
+Mesh phases (22-28) run their shards on real cards when
+``torch.cuda.device_count()`` is at least the shard count, else on a
+virtual mesh of ``cuda:0`` (``parallel/virtual_mesh.py``); each phase line
+gives its mesh's shape, devices and ``virtual``.  A virtual mesh's times
+are the mesh's overhead on one card (the extra launches, copies and host
+syncs), not scaling.
+
+Each path (phase 9 for ``sweep_scan``, 8 for the multi instance, 10 for
+the single instance, each served run of 12-16, 20-21 and 28 for the
+kernels it takes, the repair and sector phases 18-19, and the mesh phases
+22-26) is driven with every kernel's and the host syncs' counts set to 0
+just before it and read just after it (in phase 16 around each super-step burst, not around the
 single-tenant runs it is compared with; in 18 around each event's
 repairs, not the full recomputes that check them; in 19 around each plan
 on the card).
@@ -180,6 +224,17 @@ from p2p_distributed_tswap_tpu_torch.ops import (
     field_repair,
     sector,
     sweep_kernel,
+    tiled_distance,
+)
+from p2p_distributed_tswap_tpu_torch.parallel import (
+    sharded,
+    sharded2d,
+    solver_mesh,
+    virtual_mesh,
+)
+from p2p_distributed_tswap_tpu_torch.parallel.mesh import (
+    agent_mesh,
+    agent_tile_mesh,
 )
 from p2p_distributed_tswap_tpu_torch.runtime import plan_codec as pcodec
 from p2p_distributed_tswap_tpu_torch.runtime import solverd
@@ -220,6 +275,12 @@ SERVE_DYNAMIC_TICKS = 200
 WALL_EVERY = 10             # ticks between a wall closing and opening
 SERVE_SECTOR_PARITY_TICKS = 60
 SERVE_SECTOR_TICKS = 100
+EXTREME_STEPS = 20          # steps of the 4096^2 rung, flat and on 2 x 2
+TILED_GOALS = 16
+MESH_SHARDS = 4             # the agent mesh of the sharded solves
+SERVE_MESH_PARITY_TICKS = 60
+SERVE_MESH_TENANT_TICKS = 30
+SERVE_MESH_TICKS = 100
 # The counters of the repair and sector layers that the serve phases read.
 LAYER_COUNTERS = (
     "solverd.field_repairs", "solverd.field_repair_fallbacks",
@@ -315,17 +376,21 @@ def _launch_ms_runs(fn, launches: int, reps: int = 5) -> list:
 
 
 SCENARIO_MASKS = {"warehouse": scenarios.FLAGSHIP, "1k-512": scenarios.MEDIUM,
-                  "congested": scenarios.CONGESTED}
+                  "congested": scenarios.CONGESTED,
+                  "warehouse4096": scenarios.EXTREME_LITE}
 
 
 SERPENTINE_PERIOD = 16  # columns per corridor and its wall
 
 
 def _mask(kind: str, h: int, w: int, rng: np.random.Generator) -> np.ndarray:
-    """(H, W) bool free mask: a scenario's own grid, a serpentine maze, or
-    random obstacles."""
-    if kind in SCENARIO_MASKS:
-        free = SCENARIO_MASKS[kind].grid_fn().free
+    """(H, W) bool free mask: a scenario's own grid (``kind/2``: its top
+    band at two tiles), a serpentine maze, or random obstacles."""
+    base, _, band = kind.partition("/")
+    if base in SCENARIO_MASKS:
+        free = SCENARIO_MASKS[base].grid_fn().free
+        if band:
+            free = free[:free.shape[0] // int(band)]
         check(free.shape == (h, w), f"{kind} grid is not {h}x{w}")
         return free
     if kind == "serpentine":
@@ -356,6 +421,11 @@ KERNEL_CASES = (
     (128, 512, 512, "1k-512", True),
     (4, 256, 256, "congested", True),
     (64, 256, 256, "congested", True),
+    # the banded sweeps of the mesh: the 4096^2 rung's chunk, a flagship
+    # band at two tiles, and a 4096^2 band at two tiles
+    (8, 4096, 4096, "warehouse4096", True),
+    (4, 512, 1024, "warehouse/2", True),
+    (8, 2048, 4096, "warehouse4096/2", True),
     (3, 100, 100, "random", False),
     (2, 257, 131, "random", False),
     (1, 8, 4096, "border", False),
@@ -702,7 +772,7 @@ def phase_congested(dev: torch.device) -> dict:
     return out
 
 
-def phase_medium(dev: torch.device) -> None:
+def phase_medium(dev: torch.device) -> dict:
     scn = scenarios.MEDIUM
     grid, starts, tasks, cfg = scn.build(seed=0)
     with fused_env(""):
@@ -717,17 +787,27 @@ def phase_medium(dev: torch.device) -> None:
          host_syncs_per_step=syncs / max(makespan, 1))
     check(completed, "1k-512 did not complete within its horizon")
     check(inv_ok, "1k-512 recorded an illegal transition")
+    return {"paths": paths, "makespan": makespan,
+            "ms_per_step": 1e3 * secs / max(makespan, 1)}
 
 
-def _steps(cfg, s, tasks_t, free, steps: int) -> tuple:
-    """``steps`` calls of ``mapd_step`` with ``step_invariants`` folded over
-    each; returns the state, whether every step held, and the seconds."""
+def _steps(cfg, s, tasks_t, free, steps: int, step=None, step_free=None,
+           trail=None) -> tuple:
+    """``steps`` calls of ``step`` (``mapd_step``, or a sharded solver's
+    step on ``step_free``) with ``step_invariants`` folded over each;
+    returns the state, whether every step held, and the seconds.  With
+    ``trail``, each step's (pos, goal, slot) is appended as a copy on the
+    card (no host sync)."""
+    step = step or mapd.mapd_step
+    step_free = free if step_free is None else step_free
     ok = torch.ones((), dtype=torch.bool, device=free.device)
     t0 = time.perf_counter()
     for _ in range(steps):
         prev = s.pos
-        s = mapd.mapd_step(cfg, s, tasks_t, free)
+        s = step(cfg, s, tasks_t, step_free)
         ok = ok & invariants.step_invariants(cfg, prev, s.pos, free)
+        if trail is not None:
+            trail.append(torch.stack([s.pos, s.goal, s.slot]))
     torch.cuda.synchronize()
     return s, bool(ok), time.perf_counter() - t0
 
@@ -737,25 +817,37 @@ def _counts() -> dict:
             **field_fused.launches}
 
 
-def _flagship_window(cfg, starts, tasks, free, dev, on_prime=None) -> dict:
+def _flagship_window(cfg, starts, tasks, free, dev, on_prime=None,
+                     prepare=None, step=None, trail=None,
+                     warmup=FLAGSHIP_WARMUP, window=FLAGSHIP_WINDOW) -> dict:
     """The prime burst, the warm-up steps and the timed window of the
-    flagship, counts set to 0 just before and read just after.
-    ``on_prime(state)`` sees the state right after the prime."""
+    flagship (or of another rung), counts set to 0 just before and read
+    just after.  ``on_prime(state)`` sees the state right after the
+    prime; ``prepare()`` -> (state, tasks, step_free) and ``step`` replace
+    the flat solve's (the sharded solvers), ``trail`` keeps each step's
+    (pos, goal, slot)."""
     reset_counts()
     t0 = time.perf_counter()
-    s, tasks_t = mapd.prepare_state(cfg, starts, tasks, free, device=dev)
+    if prepare is None:
+        s, tasks_t = mapd.prepare_state(cfg, starts, tasks, free,
+                                        device=dev)
+        step_free = free
+    else:
+        s, tasks_t, step_free = prepare()
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
     prime = _counts()
     if on_prime is not None:
         on_prime(s)
-    s, ok_warm, _ = _steps(cfg, s, tasks_t, free, FLAGSHIP_WARMUP)
+    s, ok_warm, _ = _steps(cfg, s, tasks_t, free, warmup, step, step_free,
+                           trail)
     before = _counts()
-    s, ok_win, window_s = _steps(cfg, s, tasks_t, free, FLAGSHIP_WINDOW)
+    s, ok_win, window_s = _steps(cfg, s, tasks_t, free, window, step,
+                                 step_free, trail)
     after = _counts()
-    per_step = {k: (after[k] - before[k]) / FLAGSHIP_WINDOW for k in after}
+    per_step = {k: (after[k] - before[k]) / window for k in after}
     return {"prepare_seconds": prepare_s, "prime_counts": prime,
-            "ms_per_step": 1e3 * window_s / FLAGSHIP_WINDOW,
+            "ms_per_step": 1e3 * window_s / window,
             "host_syncs_per_step": per_step["syncs"],
             "per_step_counts": per_step, "main_path_counts": after,
             "invariants_ok": ok_warm and ok_win, "t": int(s.t),
@@ -769,8 +861,9 @@ def phase_flagship(dev: torch.device) -> dict:
     cfg = dataclasses.replace(cfg, record_paths=False)
     free = torch.from_numpy(grid.free).to(dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    trail: list = []
     with fused_env(""):  # the main path of sweep_scan
-        win = _flagship_window(cfg, starts, tasks, free, dev)
+        win = _flagship_window(cfg, starts, tasks, free, dev, trail=trail)
     main = win["main_path_counts"]
     out = {"scenario": scn.name, "agents": cfg.num_agents,
            "grid": [cfg.height, cfg.width],
@@ -785,7 +878,7 @@ def phase_flagship(dev: torch.device) -> dict:
     check(win["invariants_ok"], "flagship: a transition broke the step "
           "invariants")
     check(main["sweep"] > 0, "flagship: no sweep_scan launch on the main path")
-    return out
+    return {**out, "trail": trail}
 
 
 def phase_flagship_single(dev: torch.device, default: dict) -> dict:
@@ -953,20 +1046,21 @@ def _layer_counters() -> dict:
 
 
 def _serve(scn, dev: torch.device, ticks: int, fused: str = "",
-           keep_bytes: bool = True, env=None, world=None) -> dict:
+           keep_bytes: bool = True, env=None, world=None, mesh=None) -> dict:
     """Serve ``scn`` (seed 0) through the port's ``TickRunner`` on ``dev``:
     one packed snapshot, then ``ticks`` delta ticks of the closed-loop
     fleet, every move set certified.  Counts are set to 0 just before the
     snapshot and read after the last tick.  ``env`` is set around the run
     (``JG_DYNAMIC_WORLD``, ``JG_SECTOR``); ``world(seq, runner, fleet)``
     may send world updates before each tick, and then the field queue is
-    drained after each tick, as the daemon's idle window does."""
+    drained after each tick, as the daemon's idle window does.  ``mesh``
+    serves on a ``SolverMesh`` instead of one device."""
     grid, starts, tasks, _ = scn.build(seed=0)
     fleet = ServeFleet(grid, starts, tasks)
     fleet.free = fleet.free.copy()  # the live mask the moves are held to
     beats = _PhaseBeats()
     with fused_env(fused), env_vars(env or {}):
-        svc = solverd.PlanService(grid, device=dev)
+        svc = solverd.PlanService(grid, device=dev, mesh=mesh)
         runner = solverd.TickRunner(svc, grid, heartbeat=beats)
         enc = pcodec.PackedFleetEncoder(snapshot_every=NO_SNAPSHOT)
         datas, tick_ms, fresh, syncs, launches = [], [], [], [], []
@@ -1043,6 +1137,9 @@ def _serve(scn, dev: torch.device, ticks: int, fused: str = "",
         out["idle_ms_max"] = max(idle_ms)
     if svc.sector is not None:
         out["sector"] = svc.sector.stats()
+    if mesh is not None:
+        out["mesh"] = mesh.mesh.describe()
+        out["resident_shard_bytes"] = svc.resident_shard_bytes()
     return {"out": out, "datas": datas}
 
 
@@ -1114,15 +1211,19 @@ def phase_serve_parity(dev: torch.device) -> dict:
     return out
 
 
-def _serve_pair(phase: str, scn, dev, ticks: int, fused: str) -> dict:
+def _serve_pair(phase: str, scn, dev, ticks: int, fused: str,
+                keep=None) -> dict:
     """``scn`` served unset and under ``MAPD_FUSED=fused``: replies
-    identical, every tick certified, each run through its own kernel."""
+    identical, every tick certified, each run through its own kernel.
+    ``keep`` (a dict) receives the unset run's reply bytes."""
     runs = {}
     for label, mode in (("unset", ""), (fused, fused)):
         runs[label] = _serve(scn, dev, ticks, mode)
         torch.cuda.empty_cache()
     a, b = runs["unset"], runs[fused]
     identical = a["datas"] == b["datas"]
+    if keep is not None:
+        keep["datas"] = a["datas"]
     instance = "single" if fused == "single" else "multi"
     out = {"scenario": scn.name, "identical": identical,
            "unset": a["out"], fused: b["out"]}
@@ -1137,9 +1238,9 @@ def _serve_pair(phase: str, scn, dev, ticks: int, fused: str) -> dict:
     return out
 
 
-def phase_serve_medium(dev: torch.device) -> dict:
+def phase_serve_medium(dev: torch.device, keep=None) -> dict:
     return _serve_pair("serve_1k_512", scenarios.MEDIUM, dev,
-                       SERVE_MEDIUM_TICKS, "single")
+                       SERVE_MEDIUM_TICKS, "single", keep)
 
 
 def phase_serve_congested(dev: torch.device) -> dict:
@@ -1848,6 +1949,369 @@ def phase_serve_sector(dev: torch.device, unset: dict) -> dict:
     return out
 
 
+def mesh_devices(n: int) -> tuple:
+    """``n`` real cards when the machine has them, else ``n`` virtual
+    shards on ``cuda:0``; and whether the shards are virtual."""
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", k) for k in range(n)], False
+    return virtual_mesh.virtual_devices(n, "cuda"), True
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host ms of ``fn`` ended by a device sync (the path's host
+    syncs and copies included)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _trails_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_extreme_lite(dev: torch.device) -> dict:
+    """``EXTREME_LITE`` flat on the card: 512 agents on the 4096²
+    warehouse, the host chunked prime (``replan_chunk`` 8), then
+    EXTREME_STEPS steps, each certified; every step's (pos, goal, slot)
+    kept for the 2-D mesh phase.  (A cuda-vs-cpu run at 4096² does not
+    fit the time limit: the kernel is held to its plain version at
+    (8, 4096, 4096) in the ``kernel`` phase instead.)"""
+    scn = scenarios.EXTREME_LITE
+    grid, starts, tasks, cfg = scn.build(seed=0)
+    cfg = dataclasses.replace(cfg, record_paths=False)
+    free = torch.from_numpy(grid.free).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trail: list = []
+    with fused_env(""):
+        win = _flagship_window(cfg, starts, tasks, free, dev, trail=trail,
+                               warmup=0, window=EXTREME_STEPS)
+    out = {"scenario": scn.name, "agents": cfg.num_agents,
+           "grid": [cfg.height, cfg.width], "steps": EXTREME_STEPS, **win,
+           "prime_sweep_launches": win["prime_counts"]["sweep"],
+           "sweep_launches_per_step": win["per_step_counts"]["sweep"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    emit("extreme_lite_4096", **out)
+    check(win["invariants_ok"], "extreme_lite_4096: a step broke the "
+          "invariants")
+    check(win["main_path_counts"]["sweep"] > 0,
+          "extreme_lite_4096: no sweep_scan launch on the path")
+    return {**out, "trail": trail}
+
+
+def phase_tiled(dev: torch.device) -> dict:
+    """``tiled_direction_fields`` on the flagship's 1024² warehouse with
+    TILED_GOALS goals over tiles 2, tiles 4 and 2 x 2 (each agent block
+    its half of the goals): each equal to flat ``direction_fields`` on the
+    card; rounds (one host sync each), launches and ms beside the flat
+    sweep."""
+    grid = scenarios.FLAGSHIP.grid_fn()
+    free = torch.from_numpy(grid.free).to(dev)
+    rng = np.random.default_rng(0)
+    cells = np.flatnonzero(grid.free.reshape(-1))
+    goals = torch.from_numpy(rng.choice(cells, TILED_GOALS, replace=False)
+                             .astype(np.int32)).to(dev)
+    with fused_env(""):
+        reset_counts()
+        want = distance.direction_fields(free, goals, 256)
+        torch.cuda.synchronize()
+        flat = {"launches": sweep_kernel.launches, "rounds": hostsync.count,
+                "ms": _host_ms(lambda: distance.direction_fields(
+                    free, goals, 256))}
+        rows = []
+        for a, t in ((1, 2), (1, 4), (2, 2)):
+            devices, _ = mesh_devices(a * t)
+            mesh = agent_tile_mesh(a, t, devices)
+            bands = tiled_distance.bands_of(free, mesh)
+            per = TILED_GOALS // a
+            parts = [goals[k * per:(k + 1) * per].to(mesh.device(k))
+                     for k in range(a)]
+
+            def run():
+                return tiled_distance.tiled_direction_fields(
+                    bands, parts, grid.width)
+
+            reset_counts()
+            codes = run()
+            torch.cuda.synchronize()
+            got = torch.cat([tiled_distance.join_bands(codes[k], dev)
+                             for k in range(a)])
+            row = {"mesh": mesh.describe(), "equal": bool(torch.equal(
+                got, want)), "rounds": hostsync.count,
+                "sweep_launches": sweep_kernel.launches, "ms": _host_ms(run)}
+            rows.append(row)
+            check(row["equal"], f"tiled_1024: {a}x{t} differs from the flat "
+                  f"fields")
+            check(row["sweep_launches"] > 0, "tiled_1024: no sweep_scan")
+    out = {"grid": [grid.height, grid.width], "goals": TILED_GOALS,
+           "flat": flat, "meshes": rows}
+    emit("tiled_1024", **out)
+    return out
+
+
+def phase_sharded_medium(dev: torch.device, medium: dict) -> dict:
+    """The whole 1k-512 solve through ``solve_offline_sharded`` on a
+    MESH_SHARDS agent mesh, unset and under ``MAPD_FUSED=single``: paths
+    and makespan equal the flat solve of the ``medium`` phase, every step
+    certified."""
+    scn = scenarios.MEDIUM
+    grid, starts, tasks, cfg = scn.build(seed=0)
+    devices, _ = mesh_devices(MESH_SHARDS)
+    mesh = agent_mesh(MESH_SHARDS, devices)
+    runs = {}
+    for label, env in (("unset", ""), ("single", "single")):
+        with fused_env(env):
+            reset_counts()
+            t0 = time.perf_counter()
+            paths, _, makespan = sharded.solve_offline_sharded(
+                grid, starts, tasks, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _counts()
+        steps = max(makespan, 1)
+        runs[label] = {
+            "makespan": makespan, "seconds": secs,
+            "ms_per_step": 1e3 * secs / steps,
+            "identical_to_flat": bool(makespan == medium["makespan"]
+                                      and np.array_equal(paths,
+                                                         medium["paths"])),
+            "certified": _verify_paths(cfg.width, grid.free, paths),
+            "launches_per_step": {k: v / steps for k, v in counts.items()
+                                  if k != "syncs"},
+            "host_syncs_per_step": counts["syncs"] / steps,
+            "main_path_counts": counts}
+    out = {"scenario": scn.name, "mesh": mesh.describe(),
+           "flat_ms_per_step": medium["ms_per_step"], **runs}
+    emit("sharded_1k_512", **out)
+    for label, run in runs.items():
+        check(run["identical_to_flat"], f"sharded_1k_512 {label}: differs "
+              f"from the flat solve")
+        check(run["certified"], f"sharded_1k_512 {label}: illegal step")
+    check(runs["unset"]["main_path_counts"]["sweep"] > 0,
+          "sharded_1k_512: no sweep_scan on the unset path")
+    check(runs["single"]["main_path_counts"]["single"] > 0
+          and runs["single"]["main_path_counts"]["sweep"] == 0,
+          "sharded_1k_512: the single kernel did not run alone")
+    return out
+
+
+def phase_sharded_flagship(dev: torch.device, flag: dict) -> dict:
+    """The flagship on a MESH_SHARDS agent mesh: prime, warm-up and the
+    timed window as in the ``flagship`` phase; every step's (pos, goal,
+    slot) equal to the flat run's."""
+    scn = scenarios.FLAGSHIP
+    grid, starts, tasks, cfg = scn.build(seed=0)
+    cfg = dataclasses.replace(cfg, record_paths=False)
+    free = torch.from_numpy(grid.free).to(dev)
+    devices, _ = mesh_devices(MESH_SHARDS)
+    mesh = agent_mesh(MESH_SHARDS, devices)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trail: list = []
+    with fused_env(""):
+        win = _flagship_window(
+            cfg, starts, tasks, free, dev, trail=trail,
+            prepare=lambda: sharded.prepare_state_sharded(
+                cfg, mesh, starts, tasks, grid.free),
+            step=lambda c, st, tk, f: sharded.sharded_mapd_step(
+                c, mesh, st, tk, f))
+    same = _trails_equal(trail, flag["trail"])
+    out = {"scenario": scn.name, "mesh": mesh.describe(),
+           "warmup_steps": FLAGSHIP_WARMUP, "window_steps": FLAGSHIP_WINDOW,
+           **win, "identical_to_flat": same,
+           "flat_ms_per_step": flag["ms_per_step"],
+           "flat_host_syncs_per_step": flag["host_syncs_per_step"],
+           "sweep_launches_per_step": win["per_step_counts"]["sweep"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    emit("sharded_flagship", **out)
+    check(same, "sharded_flagship: a step differs from the flat flagship's")
+    check(win["invariants_ok"], "sharded_flagship: a step broke the "
+          "invariants")
+    check(win["main_path_counts"]["sweep"] > 0,
+          "sharded_flagship: no sweep_scan launch on the path")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded2d(dev: torch.device, extreme: dict) -> dict:
+    """``EXTREME_LITE`` on a 2 x 2 agents x tiles mesh: the banded prime,
+    then EXTREME_STEPS steps; every step equal to the flat run's."""
+    scn = scenarios.EXTREME_LITE
+    grid, starts, tasks, cfg = scn.build(seed=0)
+    cfg = dataclasses.replace(cfg, record_paths=False)
+    free = torch.from_numpy(grid.free).to(dev)
+    devices, _ = mesh_devices(4)
+    mesh = agent_tile_mesh(2, 2, devices)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trail: list = []
+    with fused_env(""):
+        win = _flagship_window(
+            cfg, starts, tasks, free, dev, trail=trail, warmup=0,
+            window=EXTREME_STEPS,
+            prepare=lambda: sharded2d.prepare_state_2d(
+                cfg, mesh, starts, tasks, grid.free),
+            step=lambda c, st, tk, f: sharded2d.sharded2d_mapd_step(
+                c, mesh, st, tk, f))
+    same = _trails_equal(trail, extreme["trail"])
+    out = {"scenario": scn.name, "mesh": mesh.describe(),
+           "steps": EXTREME_STEPS, **win, "identical_to_flat": same,
+           "flat_prepare_seconds": extreme["prepare_seconds"],
+           "flat_ms_per_step": extreme["ms_per_step"],
+           "sweep_launches_per_step": win["per_step_counts"]["sweep"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    emit("sharded2d_4096", **out)
+    check(same, "sharded2d_4096: a step differs from the flat run's")
+    check(win["invariants_ok"], "sharded2d_4096: a step broke the "
+          "invariants")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _solver_mesh(a: int, t: int) -> "solver_mesh.SolverMesh":
+    devices, _ = mesh_devices(a * t)
+    return solver_mesh.SolverMesh(a, t, devices=devices)
+
+
+def phase_serve_mesh_parity(dev: torch.device) -> dict:
+    """The ref rung served by a flat runner on the card and by runners on
+    (2, 1) and (2, 2) meshes of the card: one fleet, a world toggle at tick
+    30 (after it the fresh sweeps return distances, ``make_fields_dist``
+    on the mesh), every reply the same bytes; then three ref tenants on a
+    flat slab and on a (2, 1) mesh slab, every publish the same."""
+    scn = scenarios.REFERENCE_DEMO
+    grid, starts, tasks, _ = scn.build(seed=0)
+    fleet = ServeFleet(grid, starts, tasks)
+    fleet.free = fleet.free.copy()
+    meshes = {"2x1": _solver_mesh(2, 1), "2x2": _solver_mesh(2, 2)}
+    runners = {}
+    with fused_env(""):
+        for key, mesh in (("flat", None), *meshes.items()):
+            svc = solverd.PlanService(grid, capacity_min=16, device=dev,
+                                      mesh=mesh)
+            svc.defer_fields = False
+            runners[key] = solverd.TickRunner(svc, grid)
+        enc = pcodec.PackedFleetEncoder(snapshot_every=NO_SNAPSHOT)
+        reset_counts()
+        toggled = None
+        for seq in range(SERVE_MESH_PARITY_TICKS + 1):
+            if seq == 30:
+                busy = (set(fleet.pos.tolist()) | set(fleet.goal.tolist())
+                        | set(fleet.tasks.reshape(-1).tolist()))
+                toggled = next(c for c in np.flatnonzero(fleet.free)[::-1]
+                               if int(c) not in busy)
+                msg = {"type": "world_update", "world_seq": 1,
+                       "toggles": [[int(toggled), 1]]}
+                for run in runners.values():
+                    run.handle_world(msg)
+                fleet.free[toggled] = False
+            fleet.transitions()
+            req = {"type": "plan_request", "seq": seq,
+                   "codec": pcodec.CODEC_NAME, "caps": [pcodec.CODEC_NAME],
+                   "data": pcodec.encode_b64(
+                       enc.encode_tick(seq, fleet.items()))}
+            r = {k: run.handle(req) for k, run in runners.items()}
+            same = all(x["data"] == r["flat"]["data"] for x in r.values())
+            check(same, f"serve_mesh_parity: mesh and flat replies differ "
+                  f"at seq {seq}")
+            rp = pcodec.decode_b64(r["flat"]["data"])
+            check(fleet.certify(rp.idx, rp.pos),
+                  f"serve_mesh_parity: tick {seq} moves are not certified")
+            fleet.adopt(rp.idx, rp.pos, rp.goal)
+        counts = _counts()
+    mirrors = {k: len(run.service.dist_mirror) for k, run in runners.items()}
+    check(all(v > 0 for v in mirrors.values()), "serve_mesh_parity: no "
+          "distance sweep after the toggle")
+    tenants = _serve_mesh_tenants(dev)
+    out = {"scenario": scn.name, "ticks": SERVE_MESH_PARITY_TICKS,
+           "identical_to_flat": True, "world_toggle_cell": int(toggled),
+           "dist_mirrors": mirrors,
+           "meshes": {k: m.mesh.describe() for k, m in meshes.items()},
+           "resident_shard_bytes": {
+               k: runners[k].service.resident_shard_bytes() for k in meshes},
+           "tasks_completed": fleet.completed,
+           "main_path_counts": counts, "tenants": tenants}
+    emit("serve_mesh_parity", **out)
+    check(counts["sweep"] > 0, "serve_mesh_parity: no sweep_scan launch")
+    return out
+
+
+def _serve_mesh_tenants(dev: torch.device) -> dict:
+    """Three ref tenants (seeds 0, 1, 2), every tenant asking in every
+    burst, on a flat slab and on a (2, 1) mesh slab of the card."""
+    scn = scenarios.REFERENCE_DEMO
+    fleets, encs = {}, {}
+    for k in range(3):
+        grid, starts, tasks, _ = scn.build(seed=k)
+        fleets[f"t{k}"] = ServeFleet(grid, starts, tasks)
+        encs[f"t{k}"] = pcodec.PackedFleetEncoder(snapshot_every=NO_SNAPSHOT)
+    mesh = _solver_mesh(2, 1)
+    pubs = {"flat": [], "mesh": []}
+    runners = {}
+    for key, m in (("flat", None), ("mesh", mesh)):
+        svc = solverd.PlanService(grid, capacity_min=16, device=dev, mesh=m)
+        svc.defer_fields = False
+        runners[key] = solverd.MultiTenantRunner(
+            solverd.TenantSlab(svc, grid), grid,
+            publish=lambda t, d, key=key: pubs[key].append((t, d)))
+    strip = lambda xs: [(t, {k: v for k, v in d.items()  # noqa: E731
+                             if k != "duration_micros"}) for t, d in xs]
+    with fused_env(""):
+        for seq in range(SERVE_MESH_TENANT_TICKS + 1):
+            n = len(pubs["flat"])
+            reqs = {}
+            for ns, f in fleets.items():
+                f.transitions()
+                reqs[ns] = _tenant_request(seq, f, encs[ns])
+            for run in runners.values():
+                for ns, r in reqs.items():
+                    run.ingest(ns, r)
+                run.finish(run.begin())
+            check(strip(pubs["flat"][n:]) == strip(pubs["mesh"][n:]),
+                  f"serve_mesh_parity: tenant publishes differ at {seq}")
+            for topic, d in pubs["flat"][n:]:
+                rp = pcodec.decode_b64(d["data"])
+                f = fleets[topic.split(":")[0]]
+                check(f.certify(rp.idx, rp.pos), "serve_mesh_parity: a "
+                      "tenant tick is not certified")
+                f.adopt(rp.idx, rp.pos, rp.goal)
+    slab = runners["mesh"].slab
+    return {"tenants": 3, "ticks": SERVE_MESH_TENANT_TICKS,
+            "identical_to_flat": True, "mesh": mesh.mesh.describe(),
+            "replies": len(pubs["mesh"]),
+            "resident_shard_bytes": slab.service.resident_shard_bytes(
+                (slab.d_pos, slab.d_goal, slab.d_slot, slab.d_active))}
+
+
+def phase_serve_mesh_medium(dev: torch.device, unset_datas: list) -> dict:
+    """1k-512 served on (2, 1) and (2, 2) meshes of the card: a snapshot
+    and SERVE_MESH_TICKS delta ticks, every reply equal to the same tick
+    of ``serve_1k_512``'s unset run, every tick certified."""
+    runs = {}
+    for a, t in ((2, 1), (2, 2)):
+        key = f"{a}x{t}"
+        run = _serve(scenarios.MEDIUM, dev, SERVE_MESH_TICKS,
+                     mesh=_solver_mesh(a, t))
+        same = run["datas"] == unset_datas[:SERVE_MESH_TICKS + 1]
+        runs[key] = {**run["out"], "identical_to_flat": same}
+        check(same, f"serve_mesh_1k_512 {key}: replies differ from the "
+              f"flat run")
+        check(run["out"]["over_budget_ticks"] == 0,
+              f"serve_mesh_1k_512 {key}: ticks over the budget")
+        check(run["out"]["main_path_counts"]["sweep"] > 0,
+              f"serve_mesh_1k_512 {key}: no sweep_scan launch")
+        torch.cuda.empty_cache()
+    out = {"scenario": scenarios.MEDIUM.name, **runs}
+    emit("serve_mesh_1k_512", **out)
+    return out
+
+
 def _kernel_entry(name: str, replaces: str, tpu_kernel: str, launches: int,
                   rows: list, step_shape: list, card: str, **extra) -> dict:
     """One kernel of the kernels line; ``ms``, ``plain_ms`` and the bound
@@ -1890,13 +2354,14 @@ def main() -> int:
     fused = phase_fused(dev, card)
     phase_parity(dev)
     phase_stale_parity(dev)
-    phase_medium(dev)
+    medium = phase_medium(dev)
     congested = phase_congested(dev)
     flag = phase_flagship(dev)
     single = phase_flagship_single(dev, flag)
     torch.cuda.empty_cache()
     phase_serve_parity(dev)
-    serve_medium = phase_serve_medium(dev)
+    kept: dict = {}
+    serve_medium = phase_serve_medium(dev, kept)
     serve_congested = phase_serve_congested(dev)
     serve_flag = phase_serve_flagship(dev)
     phase_serve_tenants_parity(dev)
@@ -1910,6 +2375,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve_dynamic(dev)
     phase_serve_sector(dev, serve_medium["unset"])
+    # the multi-device layers: real cards where there are enough, else
+    # virtual shards of cuda:0
+    extreme = phase_extreme_lite(dev)
+    phase_tiled(dev)
+    phase_sharded_medium(dev, medium)
+    mesh_flag = phase_sharded_flagship(dev, flag)
+    flag.pop("trail")
+    phase_sharded2d(dev, extreme)
+    extreme.pop("trail")
+    phase_serve_mesh_parity(dev)
+    mesh_serve = phase_serve_mesh_medium(dev, kept.pop("datas"))
     served = {
         "sweep_scan": {
             "1k-512": serve_medium["unset"]["launches_per_tick"]["sweep"],
@@ -1958,6 +2434,15 @@ def main() -> int:
         "door": repair["sweep_scan_launches_door_event"]}
     kernels[0]["launches_per_sector_plan"] = \
         sect["sweep_scan_launches_per_plan"]
+    counter = {"sweep_scan": "sweep", "field_fused_multi": "multi",
+               "field_fused_single": "single"}
+    for k in kernels:
+        c = counter[k["name"]]
+        # the flagship on the 4-shard agent mesh and 1k-512 served on the
+        # 2 x 2 mesh, both on the unset path (the sweeps)
+        k["launches_per_mesh_step"] = mesh_flag["per_step_counts"][c]
+        k["launches_per_mesh_tick"] = mesh_serve["2x2"][
+            "launches_per_tick"][c]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,18 @@
 - A MAPD solve: the JAX package's ``MapdState`` crosses as a dict of numpy
   arrays, one per field (``np.asarray`` of each), under the same field
   names.
+- A sharded solve: the JAX package's sharded ``MapdState`` crosses as the
+  same dict of global numpy arrays; :func:`state_from_numpy` with a mesh
+  lays ``dirs`` out over it as the layout (``parallel/sharded.py``
+  ``agent_state_specs``, ``parallel/sharded2d.py`` ``state_specs_2d``)
+  says, the replicated fields on the mesh's lead, and
+  :func:`state_to_numpy` gathers it back.
 - A serving daemon: :func:`runner_state` reads a ``TickRunner`` of either
   package (its ``PlanService`` and packed-wire decoder) into numpy arrays
   and plain Python values, and :func:`load_runner` puts them into the
-  port's, so a request stream can be handed off mid-way.
+  port's, so a request stream can be handed off mid-way; a mesh daemon's
+  state (global arrays on both sides) crosses the same way, and the port's
+  service lays it out over its own mesh.
 
 The only type that differs is that of the packed direction words
 (``dirs``): uint32 in the JAX package, int32 here, with the same bits (see
@@ -23,16 +31,20 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from p2p_distributed_tswap_tpu_torch.ops.distance import PACKED_STAY
+from p2p_distributed_tswap_tpu_torch.parallel.mesh import Sharded
 from p2p_distributed_tswap_tpu_torch.solver.mapd import MapdState
 
 FIELDS = tuple(f.name for f in dataclasses.fields(MapdState))
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray],
-                     device) -> MapdState:
+                     device=None, mesh=None, specs=None) -> MapdState:
     """The port's ``MapdState`` on ``device`` from a dict of numpy arrays
-    (every field of the JAX package's ``MapdState``)."""
-    dev = torch.device(device)
+    (every field of the JAX package's ``MapdState``), or, given a ``mesh``
+    and the ``specs`` of a sharded solver, laid out over the mesh: ``dirs``
+    split as ``specs["dirs"]`` says, the replicated fields on the lead."""
+    dev = torch.device(device) if mesh is None else mesh.lead
     out = {}
     for name in FIELDS:
         a = np.asarray(arrays[name])
@@ -42,12 +54,14 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray],
             a = a.view(np.int32)
         # a copy: arrays handed over from JAX are read-only views
         out[name] = torch.from_numpy(np.array(a)).to(dev)
+        if mesh is not None and specs[name]:
+            out[name] = Sharded.put(mesh, out[name], specs[name])
     return MapdState(**out)
 
 
 def state_to_numpy(s: MapdState) -> Dict[str, np.ndarray]:
     """A dict of numpy arrays, one per field, in the JAX package's types
-    (``dirs`` as uint32)."""
+    (``dirs`` as uint32); a sharded state's blocks are gathered."""
     out = {name: getattr(s, name).cpu().numpy() for name in FIELDS}
     out["dirs"] = out["dirs"].view(np.uint32)
     return out
@@ -56,7 +70,7 @@ def state_to_numpy(s: MapdState) -> Dict[str, np.ndarray]:
 def _host(x) -> np.ndarray:
     """A host copy of a tensor of either package (a JAX array converts
     through ``np.asarray``, which needs no JAX import here)."""
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, Sharded)):
         return x.cpu().numpy().copy()
     return np.array(x)
 
@@ -118,8 +132,10 @@ def runner_state(runner) -> dict:
 
 def load_runner(runner, state: Mapping) -> None:
     """Put :func:`runner_state` output into the port's ``TickRunner``
-    (whose service was built on the same grid), on its service's device.
-    A service with a sector planner is refused: its plans do not cross."""
+    (whose service was built on the same grid), on its service's device,
+    or laid out over its service's mesh (the cache's rows padded with
+    all-STAY rows to a multiple of the agent shards).  A service with a
+    sector planner is refused: its plans do not cross."""
     from p2p_distributed_tswap_tpu_torch.runtime.solverd import (
         FieldQueueEntry)
 
@@ -131,6 +147,15 @@ def load_runner(runner, state: Mapping) -> None:
     dirs = state["dirs"]
     svc.dirs = (None if dirs is None else torch.from_numpy(
         np.array(dirs).view(np.int32)).to(dev))
+    mesh = svc.mesh
+    if mesh is not None and svc.dirs is not None:
+        rows = svc.dirs.shape[0]
+        pad = mesh.round_rows(rows) - rows
+        if pad:
+            svc.dirs = torch.cat([svc.dirs, torch.full(
+                (pad, svc.dirs.shape[1]), PACKED_STAY, dtype=torch.int32,
+                device=dev)])
+        svc.dirs = mesh.pin_rows(svc.dirs)
     svc.goal_rows = OrderedDict(state["goal_rows"])
     svc.goal_ref = dict(state["goal_ref"])
     svc.r_cap = state["r_cap"]
@@ -139,6 +164,8 @@ def load_runner(runner, state: Mapping) -> None:
         d = state[f"d_{k}"]
         setattr(svc, f"d_{k}", None if d is None
                 else torch.from_numpy(np.array(d)).to(dev))
+        if mesh is not None and d is not None:
+            setattr(svc, f"d_{k}", mesh.pin_lanes(getattr(svc, f"d_{k}")))
     svc.field_queue = OrderedDict(
         (g, FieldQueueEntry(cause, enq))
         for g, cause, enq in state["field_queue"])

@@ -21,3 +21,12 @@ def flag(t: torch.Tensor) -> bool:
     global count
     count += 1
     return bool(t)
+
+
+def values(t: torch.Tensor) -> list:
+    """``t.tolist()`` for a small tensor (one flag or count per shard):
+    one device-to-host read, counted as one host sync however many values
+    it carries."""
+    global count
+    count += 1
+    return t.tolist()

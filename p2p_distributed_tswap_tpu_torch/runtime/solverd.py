@@ -1,6 +1,6 @@
 """solverd -- the solver daemon behind the centralized manager's
 ``--solver=tpu`` mode, on PyTorch: the port of the JAX package's
-``runtime/solverd.py``, on a single device.
+``runtime/solverd.py``.
 
 The C++ centralized manager ships global agent state over bus topic
 "solver" as a plan_request each planning tick; this daemon runs ONE batched
@@ -50,13 +50,20 @@ mirror exists or the dirty region overflows.  ``JG_SECTOR=1`` plans fresh
 goals on corridors of the sector graph (``ops.sector``) instead of full
 sweeps.  Both run their window sweeps through ``sweep_scan`` on the card.
 
-Not ported yet, refused loudly rather than served another way: the mesh
-(``--mesh`` / ``JG_SOLVER_MESH``, with or without tenants, ROADMAP queue 1
-item 7).
+Mesh mode (``--mesh N`` or ``--mesh AxT``, or ``JG_SOLVER_MESH``; with or
+without tenants): the field cache, the lanes and the tenant slab are laid
+out over a mesh of devices of this one process
+(``parallel/solver_mesh.py``): the cache's rows over the agent shards, the
+sweeps of a fresh batch split over them (and banded over the tiles), the
+step's next hops read where the rows live.  Replies stay byte-identical to
+the single-device daemon's.  On ``--cpu`` the mesh is virtual (every shard
+on the CPU); on the card it takes A*T CUDA devices and exits 2 when there
+are fewer.  A malformed spec exits 2; ``1`` and ``1x1`` are the flat path.
 
 Usage: python -m p2p_distributed_tswap_tpu_torch.runtime.solverd
            [--port 7400] [--map FILE] [--capacity-min 16] [--warm N]
-           [--trace] [--cpu] [--solver-topic T] [--audit-ns NS]
+           [--trace] [--cpu] [--mesh N|AxT] [--solver-topic T]
+           [--audit-ns NS]
            [--tenants NS,.. | --multi-tenant] [--max-tenants 64]
            [--tenant-lanes 65536] [--tenant-idle-ms 2000]
 
@@ -101,14 +108,15 @@ from p2p_distributed_tswap_tpu_torch.ops.distance import (
     pack_directions,
     packed_cells,
 )
+from p2p_distributed_tswap_tpu_torch.parallel import solver_mesh
+from p2p_distributed_tswap_tpu_torch.parallel import virtual_mesh
+from p2p_distributed_tswap_tpu_torch.parallel.mesh import Sharded, replicate
 from p2p_distributed_tswap_tpu_torch.runtime import busns
 from p2p_distributed_tswap_tpu_torch.runtime import plan_codec as pcodec
 from p2p_distributed_tswap_tpu_torch.solver.mapd import resolve_device
 from p2p_distributed_tswap_tpu_torch.solver.step import step_parallel
 
 _I32 = torch.int32
-# Spec values of --mesh / JG_SOLVER_MESH that mean one device.
-_SINGLE_DEVICE_MESH = ("", "1", "1x1")
 # Dynamic tenant admission: an un-namespaced orchestrator announces
 # tenants here (tenant_hello -> tenant_welcome).
 ADMIT_TOPIC = "solver.admit"
@@ -215,9 +223,26 @@ class PlanService:
     SECTOR_HINTS_MAX = 64
 
     def __init__(self, grid: Grid, capacity_min: int = 16,
-                 field_cache: int = 4096, device=None):
-        self.device = resolve_device(device)
+                 field_cache: int = 4096, device=None,
+                 mesh: Optional["solver_mesh.SolverMesh"] = None):
         self.grid = grid
+        # Mesh mode: the field cache and the lanes are laid out over a
+        # mesh of devices and the step and sweeps run there; None is the
+        # single-device path, and every mesh branch below is gated on it.
+        # The replicated state lives on the mesh's lead device.
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._step = step_parallel
+        else:
+            mesh.validate_grid(grid)
+            self.device = mesh.lead
+            self._step = mesh.make_step()
+            self._mesh_fields = mesh.make_fields(grid)
+            self._mesh_fields_dist = mesh.make_fields_dist(grid)
+            # lane capacities divide over the agent shards; pow2 doubling
+            # from a shard-multiple floor keeps the property
+            capacity_min = mesh.round_lanes(capacity_min)
         self.capacity_min = capacity_min
         pc = packed_cells(grid.num_cells)
         self.max_fields = max(capacity_min,
@@ -299,7 +324,10 @@ class PlanService:
         return c
 
     def _fields(self, goals: torch.Tensor) -> torch.Tensor:
-        """(G, pc) packed rows of ``goals`` on the live mask."""
+        """(G, pc) packed rows of ``goals`` on the live mask (split over
+        the mesh in mesh mode)."""
+        if self.mesh is not None:
+            return self._mesh_fields(self.free, goals)
         return pack_directions(
             direction_fields(self.free, goals).reshape(goals.shape[0], -1))
 
@@ -308,11 +336,15 @@ class PlanService:
         and the (G, H, W) int32 distances and uint8 codes the host repair
         mirrors start from.  Always through the sweeps, ``MAPD_FUSED`` or
         not, as in the JAX package."""
+        if self.mesh is not None:
+            return self._mesh_fields_dist(self.free, goals)
         d = distance_fields(self.free, goals)
         dirs = directions_from_distance(d, self.free)
         return pack_directions(dirs.reshape(goals.shape[0], -1)), d, dirs
 
-    def _rows_index(self, rows) -> torch.Tensor:
+    def _rows_index(self, rows):
+        if self.mesh is not None:  # the mesh routes host rows to blocks
+            return np.asarray(rows, np.int64)
         return torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
 
     def _drop_goal(self, g: int) -> int:
@@ -591,7 +623,7 @@ class PlanService:
             for k, (_, p, g) in enumerate(agents):
                 pos[k], goal[k], slot[k] = p, g, self.goal_rows[g]
                 active[k] = True
-            new_pos, new_goal, _ = step_parallel(
+            new_pos, new_goal, _ = self._step(
                 cfg, self._upload(pos), self._upload(goal),
                 self._upload(slot), self.dirs, self._upload(active))
         p = PendingPlan()
@@ -644,6 +676,13 @@ class PlanService:
         that later deltas write in place."""
         return torch.from_numpy(np.array(np_arr)).to(self.device)
 
+    def _lane_put(self, np_arr):
+        """Host -> device upload of a per-lane vector, laid out over the
+        agent shards in mesh mode."""
+        if self.mesh is None:
+            return self._upload(np_arr)
+        return self.mesh.pin_lanes(np.array(np_arr))
+
     def _resident_grow(self, lanes_needed: int) -> None:
         cap = self._capacity(max(lanes_needed, 1))
         if cap <= self.r_cap:
@@ -653,6 +692,10 @@ class PlanService:
         self.h_goal = np.concatenate([self.h_goal, np.zeros(pad, np.int32)])
         self.h_slot = np.concatenate([self.h_slot, np.zeros(pad, np.int32)])
         self.h_active = np.concatenate([self.h_active, np.zeros(pad, bool)])
+        if self.mesh is not None:
+            self.r_cap = cap
+            self._resident_grow_mesh(pad)
+            return
         dev = self.device
         if self.d_pos is None:
             self.d_pos = torch.zeros(cap, dtype=_I32, device=dev)
@@ -668,6 +711,23 @@ class PlanService:
                 [self.d_active, torch.zeros(pad, dtype=torch.bool,
                                             device=dev)])
         self.r_cap = cap
+
+    def _resident_grow_mesh(self, pad: int) -> None:
+        """Mesh mode of the lane growth: the grown lanes laid out over the
+        agent shards again (growth is rare, O(log N) per fleet)."""
+        if self.d_pos is None:
+            self.d_pos = self._lane_put(np.zeros(self.r_cap, np.int32))
+            self.d_goal = self._lane_put(np.zeros(self.r_cap, np.int32))
+            self.d_slot = self._lane_put(np.zeros(self.r_cap, np.int32))
+            self.d_active = self._lane_put(np.zeros(self.r_cap, bool))
+            return
+        lead = self.device
+        grown = []
+        for x in (self.d_pos, self.d_goal, self.d_slot, self.d_active):
+            x = replicate(x, lead)
+            grown.append(self.mesh.pin_lanes(torch.cat(
+                [x, torch.zeros(pad, dtype=x.dtype, device=lead)])))
+        self.d_pos, self.d_goal, self.d_slot, self.d_active = grown
 
     def _ref_goal(self, goal: int, delta: int) -> None:
         r = self.goal_ref.get(goal, 0) + delta
@@ -694,6 +754,14 @@ class PlanService:
         existing rows."""
         pc = packed_cells(self.grid.num_cells)
         old = self.dirs
+        if self.mesh is not None:
+            # the row count divides over the agent shards
+            rows = self.mesh.round_rows(rows)
+            self.dirs = Sharded.full(self.mesh.mesh, (rows, pc), PACKED_STAY,
+                                     _I32, self.mesh.row_spec)
+            if old is not None:
+                self.dirs[:old.shape[0]] = old.gather()
+            return
         self.dirs = torch.full((rows, pc), PACKED_STAY, dtype=_I32,
                                device=self.device)
         if old is not None:
@@ -1081,10 +1149,10 @@ class PlanService:
                 np.int32, len(goals))
             self.h_active[lanes] = True
             # a snapshot IS the O(N) resync: one full upload (copies)
-            self.d_pos = self._upload(self.h_pos)
-            self.d_goal = self._upload(self.h_goal)
-            self.d_slot = self._upload(self.h_slot)
-            self.d_active = self._upload(self.h_active)
+            self.d_pos = self._lane_put(self.h_pos)
+            self.d_goal = self._lane_put(self.h_goal)
+            self.d_slot = self._lane_put(self.h_slot)
+            self.d_active = self._lane_put(self.h_active)
             reg.count("solverd.snapshots_applied")
             self._apply_corruption()
             return int(lanes.size)
@@ -1141,7 +1209,7 @@ class PlanService:
                         parent="solverd.tick"):
             cfg = SolverConfig(height=self.grid.height,
                                width=self.grid.width, num_agents=cap)
-            new_pos, new_goal, _ = step_parallel(
+            new_pos, new_goal, _ = self._step(
                 cfg, self.d_pos, self.d_goal, self.d_slot, self.dirs,
                 self.d_active)
         p = PendingPlan()
@@ -1157,6 +1225,35 @@ class PlanService:
         p.t_plan0 = p.t_sweep0 = p.t_disp0 = t0
         p.t_disp_end = time.perf_counter()
         return p
+
+    def resident_shard_bytes(self, extra=()) -> Dict[int, int]:
+        """Bytes each mesh position holds of the planning state (the dirs
+        cache, the lanes and ``extra``, e.g. the tenant slab's planes), as
+        allocated: a virtual mesh holds every position's copy on its one
+        device.  Empty on the flat path."""
+        if self.mesh is None:
+            return {}
+        return self.mesh.shard_bytes(
+            [self.dirs, self.d_pos, self.d_goal, self.d_slot,
+             self.d_active, *extra])
+
+    def update_mesh_gauges(self, extra=()) -> None:
+        """Refresh the per-shard residency gauges (block sizes only, no
+        device sync; a no-op on the flat path)."""
+        per = self.resident_shard_bytes(extra)
+        if not per:
+            return
+        reg = registry.get_registry()
+        for k, b in per.items():
+            reg.gauge("solverd.resident_bytes", b, shard=str(k))
+
+    def mesh_stats(self) -> Optional[dict]:
+        """The ``mesh`` entry of the stats (None on the flat path)."""
+        if self.mesh is None:
+            return None
+        return {"shape": self.mesh.shape_str,
+                "devices": self.mesh.n_devices,
+                "resident_bytes": self.resident_shard_bytes()}
 
 
 def apply_world_frame(service: PlanService, reg, data: dict) -> int:
@@ -1489,6 +1586,9 @@ class TickRunner:
         if total_ms > self.budget_ms:
             self.registry.count("tick.over_budget")
         self.registry.gauge("tick.agents", plan.n)
+        # mesh residency gauges: block sizes only, no device sync (a flat
+        # service returns at once)
+        self.service.update_mesh_gauges()
         if self.heartbeat is not None:
             phase_ms = dict(self.service.last_phase_ms)
             phase_ms["decode"] = 1000.0 * (r["t_dec"] - r["t0"])
@@ -1540,7 +1640,7 @@ class TickRunner:
             "world_seq": svc.world_seq,
             "world_log": len(svc.world_log),
             "dist_mirrors": len(svc.dist_mirror),
-            "mesh": None,
+            "mesh": svc.mesh_stats(),
             "last_phase_ms": {k: round(v, 3)
                               for k, v in svc.last_phase_ms.items()},
         }
@@ -1622,6 +1722,7 @@ class TenantSlab:
         # PlanService.lane_wait/wait_lanes
         self.lane_wait: Dict[Tuple[int, int], int] = {}
         self.wait_lanes: Dict[int, set] = {}
+        self._mesh_step = None  # the mesh's super-step, built on first use
 
     # -- geometry ---------------------------------------------------------
     def _grow(self, rows: int, lanes: int) -> None:
@@ -1653,8 +1754,10 @@ class TenantSlab:
 
     def _upload(self) -> None:
         """Full host->device resync (growth/admission/eviction: the
-        structural edges; steady-state deltas use the row scatter)."""
-        up = self.service._upload
+        structural edges; steady-state deltas use the row scatter).  In
+        mesh mode the planes split over the lane axis."""
+        mesh = self.service.mesh
+        up = self.service._upload if mesh is None else mesh.pin_slab
         self.d_pos = up(self.h_pos)
         self.d_goal = up(self.h_goal)
         self.d_slot = up(self.h_slot)
@@ -1891,10 +1994,19 @@ class TenantSlab:
             cfg = SolverConfig(height=self.grid.height,
                                width=self.grid.width,
                                num_agents=self.T_cap * self.L_cap)
-            new_pos, new_goal, _ = step_parallel(
-                cfg, self.d_pos.reshape(-1), self.d_goal.reshape(-1),
-                self.d_slot.reshape(-1), self.service.dirs,
-                self.d_active.reshape(-1), tenants=self.T_cap)
+            if self.service.mesh is None:
+                new_pos, new_goal, _ = step_parallel(
+                    cfg, self.d_pos.reshape(-1), self.d_goal.reshape(-1),
+                    self.d_slot.reshape(-1), self.service.dirs,
+                    self.d_active.reshape(-1), tenants=self.T_cap)
+            else:
+                # the tenant fold on the mesh: the planes gathered on the
+                # lead, the next hops read from the row-split cache
+                if self._mesh_step is None:
+                    self._mesh_step = self.service.mesh.make_slab_step()
+                new_pos, new_goal, _ = self._mesh_step(
+                    cfg, self.d_pos, self.d_goal, self.d_slot,
+                    self.service.dirs, self.d_active)
         p = PendingSuper()
         p.new_pos = new_pos.reshape(shape)
         p.new_goal = new_goal.reshape(shape)
@@ -2160,6 +2272,10 @@ class MultiTenantRunner:
         if total_ms > self.budget_ms:
             self.registry.count("tick.over_budget")
         self.registry.gauge("tick.agents", p.lanes)
+        # mesh residency gauges: the dirs cache and the slab's planes
+        self.slab.service.update_mesh_gauges(
+            extra=(self.slab.d_pos, self.slab.d_goal, self.slab.d_slot,
+                   self.slab.d_active))
         if self.heartbeat is not None:
             self.heartbeat.beat(
                 self.ticks, p.lanes,
@@ -2196,7 +2312,7 @@ class MultiTenantRunner:
             "deferred_lanes": len(self.slab.lane_wait),
             "dynamic_world": svc.dynamic_world,
             "world_seq": svc.world_seq,
-            "mesh": None,
+            "mesh": svc.mesh_stats(),
         }
         snap["network"] = self.registry.network_summary()
         return snap
@@ -2435,21 +2551,47 @@ def multi_tenant_loop(bus, runner: MultiTenantRunner, slab: TenantSlab,
 def refusal(args) -> Optional[str]:
     """Why the daemon refuses to start with these arguments (or None): a
     custom plan topic in multi-tenant mode (as the JAX daemon refuses it),
-    the mesh, which is not ported yet, and a card that is missing."""
+    a malformed mesh spec, a mesh on the card with fewer cards than it
+    names, and a card that is missing."""
     multi_tenant = args.tenants is not None or args.multi_tenant
     if multi_tenant and args.solver_topic != "solver":
         # tenant plan wires are namespaced topics; a custom flat topic
         # would silently split the plane
         return "--solver-topic is incompatible with multi-tenant mode"
-    mesh = (args.mesh if args.mesh is not None
-            else os.environ.get("JG_SOLVER_MESH"))
-    if (mesh or "").strip().lower() not in _SINGLE_DEVICE_MESH:
-        return (f"mesh {mesh!r}: the multi-device planner is not ported "
-                f"yet (ROADMAP queue 1 item 7)")
+    try:
+        mesh_shape = solver_mesh.mesh_spec_from_env(mesh_spec(args))
+    except ValueError as e:
+        return str(e)
+    if mesh_shape is not None and not args.cpu:
+        try:
+            solver_mesh.SolverMesh(*mesh_shape)
+        except RuntimeError as e:
+            return f"mesh {mesh_spec(args)}: {e}"
     if not args.cpu and not torch.cuda.is_available():
         return ("CUDA is not available: the daemon plans on the card; pass "
                 "--cpu to plan on the CPU")
     return None
+
+
+def mesh_spec(args) -> Optional[str]:
+    """The mesh spec: ``--mesh`` wins over ``JG_SOLVER_MESH``."""
+    return (args.mesh if args.mesh is not None
+            else os.environ.get("JG_SOLVER_MESH"))
+
+
+def build_mesh(args, grid: Grid) -> Optional["solver_mesh.SolverMesh"]:
+    """The daemon's mesh, or None for the flat path: virtual CPU shards
+    under ``--cpu`` (the JAX daemon forces virtual CPU devices there),
+    else the first A*T CUDA devices.  Raises ValueError or RuntimeError
+    for a spec the grid or the machine cannot take."""
+    shape = solver_mesh.mesh_spec_from_env(mesh_spec(args))
+    if shape is None:
+        return None
+    devices = (virtual_mesh.virtual_devices(shape[0] * shape[1], "cpu")
+               if args.cpu else None)
+    mesh = solver_mesh.SolverMesh(*shape, devices=devices)
+    mesh.validate_grid(grid)
+    return mesh
 
 
 def warm(service: PlanService, grid: Grid, n_agents: int) -> int:
@@ -2492,9 +2634,11 @@ def main(argv=None) -> int:
                     help="force span tracing on (equivalent to JG_TRACE=1)")
     ap.add_argument("--cpu", action="store_true",
                     help="plan on the CPU (the default is the card)")
-    # accepted so that it is refused by name, not as an unknown flag
+    # Mesh mode: shard the planning plane over a mesh of devices.
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet: refused unless unset or 1")
+                    help="device mesh spec N or AxT (JG_SOLVER_MESH); "
+                         "1 or 1x1 is one device; with --cpu the shards "
+                         "are virtual")
     # Multi-tenant mode: serve many namespaced fleets from one
     # device-resident super-batch.  --tenants pre-subscribes a static
     # tenant list; --multi-tenant additionally listens on solver.admit for
@@ -2568,8 +2712,26 @@ def main(argv=None) -> int:
     if obs_audit.enabled():
         bus.subscribe(obs_audit.AUDIT_TOPIC, raw=True)
 
+    mesh_obj = None
+    try:
+        mesh_obj = build_mesh(args, grid)
+    except (RuntimeError, ValueError) as e:
+        print(f"❌ mesh {mesh_spec(args)}: {e}", file=sys.stderr)
+        return 2
+    if mesh_obj is not None:
+        reg = registry.get_registry()
+        reg.gauge("solverd.mesh_devices", mesh_obj.n_devices)
+        reg.gauge("solverd.mesh_agents", mesh_obj.n_agent_shards)
+        reg.gauge("solverd.mesh_tiles", mesh_obj.n_tiles)
+        # the shape string rides a labeled unit gauge (gauge values are
+        # floats); the fleet aggregator lifts the label into its mesh
+        # section
+        reg.gauge("solverd.mesh_shape", 1, shape=mesh_obj.shape_str)
     service = PlanService(grid, capacity_min=args.capacity_min,
-                          device=device)
+                          device=device, mesh=mesh_obj)
+    if mesh_obj is not None:
+        # residency gauges exist from the first beacon, not the first tick
+        service.update_mesh_gauges()
     t0 = time.perf_counter()
     n = warm(service, grid, args.warm)
     print(f"🔥 pre-warmed on {device}: capacity {service._capacity(n)} "
@@ -2625,11 +2787,15 @@ def main(argv=None) -> int:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     trace.instant("solverd.up", port=args.port, multi_tenant=multi_tenant,
-                  mesh=None)
+                  mesh=mesh_obj.shape_str if mesh_obj else None)
     print(f"🧮 solverd up on port {args.port} "
           f"(grid {grid.height}x{grid.width}, device={device} [{name}]"
           + (f", tenants={[t or '<default>' for t in tenant_list]}"
-             f" max={args.max_tenants}" if multi_tenant else "") + ")")
+             f" max={args.max_tenants}" if multi_tenant else "")
+          + (f", mesh={mesh_obj.shape_str}"
+             f" [{mesh_obj.n_devices} devices"
+             f"{', virtual' if mesh_obj.mesh.virtual else ''}]"
+             if mesh_obj else "") + ")")
     sys.stdout.flush()
 
     if multi_tenant:

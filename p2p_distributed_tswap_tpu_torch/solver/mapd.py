@@ -47,6 +47,7 @@ from p2p_distributed_tswap_tpu_torch.solver.step import (
     next_hops,
     step_parallel,
     step_stale,
+    step_with_next_hops,
 )
 
 _FAR = 1 << 20  # > any grid manhattan distance
@@ -99,7 +100,9 @@ def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 def init_state(cfg: SolverConfig, starts: torch.Tensor,
-               num_tasks: int) -> MapdState:
+               num_tasks: int, dirs=None) -> MapdState:
+    """The state before the first step; ``dirs`` replaces the all-STAY
+    packed rows (the sharded solvers pass theirs, laid out over a mesh)."""
     n, hw, tmax = cfg.num_agents, cfg.num_cells, cfg.max_timesteps
     dev = starts.device
     # path buffers shrink to one dummy row when recording is off
@@ -109,8 +112,8 @@ def init_state(cfg: SolverConfig, starts: torch.Tensor,
         pos=starts.clone(),
         goal=starts.clone(),
         slot=torch.arange(n, dtype=_I32, device=dev),
-        dirs=torch.full((n, packed_cells(hw)), PACKED_STAY, dtype=_I32,
-                        device=dev),
+        dirs=(torch.full((n, packed_cells(hw)), PACKED_STAY, dtype=_I32,
+                         device=dev) if dirs is None else dirs),
         phase=torch.full((n,), _IDLE, dtype=torch.int8, device=dev),
         agent_task=torch.full((n,), -1, dtype=_I32, device=dev),
         task_used=torch.zeros(num_tasks, dtype=torch.bool, device=dev),
@@ -299,9 +302,15 @@ def _broadcast_view(cfg: SolverConfig, s: MapdState) -> MapdState:
 
 
 def mapd_step(cfg: SolverConfig, s: MapdState, tasks: torch.Tensor,
-              free: torch.Tensor) -> MapdState:
+              free, replan_fn=None, nh_factory=None) -> MapdState:
     """One full MAPD timestep, on the state's device: (pending commit) ->
     transitions -> assignment -> replan -> TSWAP step -> record.
+
+    ``replan_fn(cfg, s, free)`` and ``nh_factory(cfg, dirs) -> nh_fn`` let
+    the sharded solvers (``parallel/sharded.py``, ``parallel/sharded2d.py``)
+    swap in their distributed replan and next-hop lookup, in the fresh and
+    the stale branch alike, while the MAPD sequencing lives here only;
+    ``free`` is then whatever their ``replan_fn`` takes.
 
     Stale mode (``cfg.stale_mode``): last step's pending goal exchanges
     commit first, the view is refreshed after the replan, and
@@ -310,16 +319,22 @@ def mapd_step(cfg: SolverConfig, s: MapdState, tasks: torch.Tensor,
     commit at the end of the same step instead."""
     dev = s.pos.device
     tasks = _as_tensor(tasks, _I32, dev)
-    free = _as_tensor(free, torch.bool, dev)
+    if replan_fn is None:
+        free = _as_tensor(free, torch.bool, dev)
     stale = cfg.stale_mode
     if stale:
         s = _commit_pending(cfg, s)
     s = _transitions(cfg, s, tasks)
     if hostsync.flag(torch.any((s.phase == _IDLE) & ~torch.all(s.task_used))):
         s = _assign(cfg, s, tasks)
-    s = _replan(cfg, s, free)
+    s = (replan_fn or _replan)(cfg, s, free)
     if not stale:
-        pos, goal, slot = step_parallel(cfg, s.pos, s.goal, s.slot, s.dirs)
+        if nh_factory is None:
+            pos, goal, slot = step_parallel(cfg, s.pos, s.goal, s.slot,
+                                            s.dirs)
+        else:
+            pos, goal, slot = step_with_next_hops(
+                cfg, s.pos, s.goal, s.slot, nh_factory(cfg, s.dirs))
         return _record(cfg, s.replace(pos=pos, goal=goal, slot=slot))
     s = _broadcast_view(cfg, s)
     if cfg.view_ttl_steps is None:
@@ -327,10 +342,12 @@ def mapd_step(cfg: SolverConfig, s: MapdState, tasks: torch.Tensor,
     else:
         visible = (s.t - s.vstamp) <= cfg.view_ttl_steps
     dirs = s.dirs
+    if nh_factory is None:
+        nh_fn = lambda sl, po: next_hops(cfg, dirs, sl, po)  # noqa: E731
+    else:
+        nh_fn = nh_factory(cfg, dirs)
     pos, pend_from, pend_push = step_stale(
-        cfg, s.pos, s.goal, s.slot,
-        lambda sl, po: next_hops(cfg, dirs, sl, po),
-        s.vpos, s.vgoal, visible)
+        cfg, s.pos, s.goal, s.slot, nh_fn, s.vpos, s.vgoal, visible)
     s = s.replace(pos=pos, pend_from=pend_from, pend_push=pend_push)
     if cfg.swap_commit_delay == 0:
         s = _commit_pending(cfg, s)

@@ -1,8 +1,10 @@
 """The port on the card: the CUDA kernels (the sweep, with one mask for
 every field or one per field, and both instances of the fused field kernel)
-against their plain versions, CUDA solves against CPU solves, and the
-field repair and sector planner on the card against the same calls on the
-CPU.
+against their plain versions, CUDA solves against CPU solves, the field
+repair and sector planner on the card against the same calls on the CPU,
+and the multi-device layers (banded sweeps, sharded solves, the mesh
+daemon) on virtual shards of the card, and on real ones where there are
+two cards, against the flat path on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -615,17 +617,19 @@ def test_stale_solve_on_cuda_matches_cpu(cuda, monkeypatch, fused):
     np.testing.assert_array_equal(got[1], want[1])
 
 
-def _serve_stream(device, free, wire, ticks=30, n=40, seed=6):
+def _serve_stream(device, free, wire, ticks=30, n=40, seed=6, mesh=None):
     """A short closed-loop request stream served by the port's
-    ``TickRunner`` on ``device`` (deferred fields off): the fleet adopts
-    each reply's moves and goals, and an agent on its goal takes a random
-    next one.  Returns every reply with ``duration_micros`` dropped."""
+    ``TickRunner`` on ``device``, or on ``mesh`` (deferred fields off): the
+    fleet adopts each reply's moves and goals, and an agent on its goal
+    takes a random next one.  Returns every reply with ``duration_micros``
+    dropped."""
     from p2p_distributed_tswap_tpu_torch.runtime import plan_codec as pc
     from p2p_distributed_tswap_tpu_torch.runtime import solverd
 
     grid = Grid(free.copy())
     w = grid.width
-    svc = solverd.PlanService(grid, capacity_min=8, device=device)
+    svc = solverd.PlanService(grid, capacity_min=8, device=device,
+                              mesh=mesh)
     svc.defer_fields = False
     runner = solverd.TickRunner(svc, grid)
     rng = np.random.default_rng(seed)
@@ -796,3 +800,133 @@ def test_tenant_runner_on_cuda_matches_cpu(cuda):
     assert sweep_kernel.launches > before
     assert len(got) == 60
     assert got == _tenant_stream(torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layers on the card: virtual shards on cuda:0, and real
+# shards where the machine has two cards or more
+# ---------------------------------------------------------------------------
+
+
+def _cuda_mesh(a, t, real=False):
+    from p2p_distributed_tswap_tpu_torch.parallel.mesh import agent_tile_mesh
+    from p2p_distributed_tswap_tpu_torch.parallel.virtual_mesh import (
+        virtual_devices)
+
+    return agent_tile_mesh(a, t, None if real
+                           else virtual_devices(a * t, "cuda"))
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards for a mesh of real shards")
+    return cuda
+
+
+@pytest.mark.parametrize("a,t", [(1, 2), (1, 4), (2, 2)])
+def test_tiled_fields_on_cuda_match_flat(cuda, a, t):
+    from p2p_distributed_tswap_tpu_torch.ops import tiled_distance as td
+
+    grid = Grid.warehouse(256, 256)
+    free = torch.from_numpy(grid.free).to(cuda)
+    rng = np.random.default_rng(a * 10 + t)
+    cells = np.flatnonzero(grid.free.reshape(-1))
+    goals = [torch.from_numpy(rng.choice(cells, 6).astype(np.int32))
+             for _ in range(a)]
+    mesh = _cuda_mesh(a, t)
+    before = sweep_kernel.launches
+    codes = td.tiled_direction_fields(td.bands_of(free, mesh),
+                                      [g.to(cuda) for g in goals], 256)
+    assert sweep_kernel.launches > before
+    for k in range(a):
+        want = distance.direction_fields(free, goals[k].to(cuda), 256)
+        assert torch.equal(td.join_bands(codes[k], cuda), want)
+
+
+def _window(cfg, s, tasks, free, step, steps):
+    out = []
+    for _ in range(steps):
+        s = step(cfg, s, tasks, free)
+        out.append((s.pos.cpu().numpy(), s.goal.cpu().numpy(),
+                    s.slot.cpu().numpy()))
+    return out
+
+
+def test_sharded_window_on_cuda_matches_flat(cuda):
+    """1k-512 on a 4-shard agent mesh of the card: the prime's rows and
+    every step's (pos, goal, slot) of a window equal the flat solve's."""
+    from p2p_distributed_tswap_tpu_torch.models import scenarios
+    from p2p_distributed_tswap_tpu_torch.parallel import sharded
+
+    grid, starts, tasks, cfg = scenarios.MEDIUM.build(seed=0)
+    s, tasks_t = mapd.prepare_state(cfg, starts, tasks, grid.free,
+                                    device=cuda)
+    free = torch.from_numpy(grid.free).to(cuda)
+    mesh = _cuda_mesh(4, 1)
+    m, mtasks, mfree = sharded.prepare_state_sharded(cfg, mesh, starts,
+                                                     tasks, grid.free)
+    assert torch.equal(m.dirs.gather(), s.dirs)
+    want = _window(cfg, s, tasks_t, free, mapd.mapd_step, 12)
+    got = _window(cfg, m, mtasks, mfree,
+                  lambda c, st, tk, f: sharded.sharded_mapd_step(
+                      c, mesh, st, tk, f), 12)
+    for w, g in zip(want, got):
+        for a, b in zip(w, g):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_sharded2d_solve_on_cuda_matches_flat(cuda):
+    from p2p_distributed_tswap_tpu_torch.parallel import sharded2d
+
+    grid = Grid.warehouse(64, 128)
+    starts = start_positions_array(grid, 32, seed=2)
+    tasks = TaskGenerator(grid, seed=3).generate_task_arrays(32)
+    want = mapd.solve_offline(grid, starts, tasks, device=cuda)
+    got = sharded2d.solve_offline_sharded2d(grid, starts, tasks,
+                                            mesh=_cuda_mesh(2, 2))
+    assert got[2] == want[2]
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+def _mesh_stream(cuda, shape, real=False):
+    from p2p_distributed_tswap_tpu_torch.parallel.solver_mesh import (
+        SolverMesh)
+    from p2p_distributed_tswap_tpu_torch.parallel.virtual_mesh import (
+        virtual_devices)
+
+    a, t = shape
+    devices = None if real else virtual_devices(a * t, "cuda")
+    return SolverMesh(a, t, devices=devices)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+def test_mesh_runner_on_cuda_matches_flat(cuda, shape):
+    free = Grid.warehouse(64, 256).free
+    want = _serve_stream(cuda, free, "packed")
+    before = sweep_kernel.launches
+    got = _serve_stream(cuda, free, "packed",
+                        mesh=_mesh_stream(cuda, shape))
+    assert sweep_kernel.launches > before
+    assert got == want
+
+
+def test_mesh_of_real_cards_matches_flat(two_cards):
+    """Two cards: a real (2, 1) mesh (peer copies between the cards)
+    serves the same replies as one card, and the banded sweep over the two
+    cards equals the flat fields."""
+    from p2p_distributed_tswap_tpu_torch.ops import tiled_distance as td
+
+    free = Grid.warehouse(64, 256).free
+    got = _serve_stream(two_cards, free, "packed",
+                        mesh=_mesh_stream(two_cards, (2, 1), real=True))
+    assert got == _serve_stream(two_cards, free, "packed")
+    mesh = _cuda_mesh(1, 2, real=True)
+    assert not mesh.virtual
+    f = torch.from_numpy(free).to(two_cards)
+    goals = torch.tensor([5, 700, 9000], dtype=torch.int32,
+                         device=two_cards)
+    codes = td.tiled_direction_fields(td.bands_of(f, mesh), [goals], 256)
+    assert codes[0][1].device == torch.device("cuda", 1)
+    assert torch.equal(td.join_bands(codes[0], two_cards),
+                       distance.direction_fields(f, goals, 256))

@@ -9,10 +9,12 @@
   copies of the JAX package's: the same code, the package name rewritten;
   the port's ``RuntimeConfig`` is the JAX package's, field for field.
 - The port's ``Fleet`` launcher spawns the port's daemon.
-- The daemon refuses the mode it does not serve yet (the mesh, with or
-  without tenants), a custom plan topic in multi-tenant mode, and a missing
-  card unless ``--cpu`` is given; it serves the sector planner
-  (``JG_SECTOR=1``), single- and multi-tenant.
+- The daemon serves the mesh (``--mesh`` / ``JG_SOLVER_MESH``, with or
+  without tenants; virtual CPU shards under ``--cpu``) and the sector
+  planner (``JG_SECTOR=1``), single- and multi-tenant; it refuses a
+  malformed mesh spec, a mesh with fewer cards than it names, a custom
+  plan topic in multi-tenant mode, and a missing card unless ``--cpu`` is
+  given.
 """
 
 import ast
@@ -20,8 +22,11 @@ import dataclasses
 import os
 import pathlib
 import re
+import socket
 import subprocess
 import sys
+import threading
+import time
 import types
 
 import numpy as np
@@ -73,6 +78,12 @@ MODULES = {
     "p2p_distributed_tswap_tpu_torch.runtime.bus_client",
     "p2p_distributed_tswap_tpu_torch.obs.audit",
     "p2p_distributed_tswap_tpu_torch.obs.registry",
+    "p2p_distributed_tswap_tpu_torch.ops.tiled_distance",
+    "p2p_distributed_tswap_tpu_torch.parallel.mesh",
+    "p2p_distributed_tswap_tpu_torch.parallel.virtual_mesh",
+    "p2p_distributed_tswap_tpu_torch.parallel.sharded",
+    "p2p_distributed_tswap_tpu_torch.parallel.sharded2d",
+    "p2p_distributed_tswap_tpu_torch.parallel.solver_mesh",
 }
 
 # Copied from the JAX package: the same code, with the package name
@@ -121,6 +132,22 @@ def test_repair_and_sector_modules_import_no_jax(name):
     """The dynamic-world repair and the sector planner, imported alone in
     a fresh interpreter, bring in neither JAX nor the JAX package (the JAX
     package's modules of the same names import jax at their top)."""
+    out = _python(_IMPORT_ONE.format(
+        name=f"p2p_distributed_tswap_tpu_torch.{name}"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    src = (REPO / "p2p_distributed_tswap_tpu_torch"
+           / (name.replace(".", "/") + ".py")).read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|p2p_distributed_tswap_tpu)"
+                         r"\b(?!_torch)", src, re.M)
+
+
+@pytest.mark.parametrize("name", [
+    "ops.tiled_distance", "parallel.mesh", "parallel.virtual_mesh",
+    "parallel.sharded", "parallel.sharded2d", "parallel.solver_mesh"])
+def test_mesh_modules_import_no_jax(name):
+    """The multi-device layers, each imported alone in a fresh
+    interpreter, bring in neither JAX nor the JAX package."""
     out = _python(_IMPORT_ONE.format(
         name=f"p2p_distributed_tswap_tpu_torch.{name}"))
     assert out.returncode == 0, out.stderr
@@ -275,17 +302,65 @@ def _solverd(args, env_extra=None, env_drop=()):
                     "--port", "1", *args], env=env)
 
 
-@pytest.mark.parametrize("args,env_extra,item", [
-    (["--mesh", "2"], {}, "item 7"),
-    ([], {"JG_SOLVER_MESH": "2x2"}, "item 7"),
-    # multi-tenant mode is served; with a mesh it is the mesh's item
-    (["--tenants", "a,b", "--mesh", "2"], {}, "item 7"),
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.mark.parametrize("args,env_extra", [
+    (["--mesh", "2"], {}),
+    ([], {"JG_SOLVER_MESH": "2x2"}),
+    (["--tenants", "a,b", "--mesh", "2"], {}),
 ], ids=["mesh", "mesh-env", "tenants"])
-def test_daemon_refuses_what_is_not_ported(args, env_extra, item):
-    out = _solverd([*args, "--cpu"], env_extra,
-                   env_drop=("JG_SOLVER_MESH", "JG_SECTOR"))
+def test_daemon_serves_the_mesh(args, env_extra):
+    """The mesh, with or without tenants, comes up on virtual CPU shards
+    under ``--cpu`` on a live bus and says so in its banner."""
+    from p2p_distributed_tswap_tpu_torch.runtime.fleet import ensure_built
+
+    port = _free_port()
+    bus = subprocess.Popen([str(ensure_built() / "mapd_bus"), str(port)],
+                           stdout=subprocess.DEVNULL)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JG_SOLVER_MESH", "JG_SECTOR")}
+    env.update(env_extra)
+    sd = subprocess.Popen(
+        [sys.executable, "-m", "p2p_distributed_tswap_tpu_torch.runtime."
+         "solverd", "--port", str(port), "--cpu", *args], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(
+        target=lambda: [lines.append(x) for x in sd.stdout], daemon=True)
+    reader.start()
+    try:
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline and sd.poll() is None \
+                and not any("solverd up" in x for x in lines):
+            time.sleep(0.1)
+        up = [x for x in lines if "solverd up" in x]
+        assert up, lines
+        shape = "2x2" if env_extra else "2x1"
+        assert f"mesh={shape}" in up[0] and "virtual" in up[0]
+    finally:
+        sd.terminate()
+        sd.wait(timeout=10)
+        bus.terminate()
+        bus.wait(timeout=10)
+
+
+@pytest.mark.parametrize("args,says", [
+    (["--mesh", "0", "--cpu"], "bad mesh spec"),
+    (["--mesh", "2"], "mesh needs 2 devices"),
+], ids=["malformed", "too-few-cards"])
+def test_daemon_refuses_a_mesh_it_cannot_serve(args, says):
+    """A malformed spec exits 2; so does a mesh on the card with fewer
+    cards than it names (here none, or one), never serving flat."""
+    if "--cpu" not in args and torch.cuda.is_available() \
+            and torch.cuda.device_count() >= 2:
+        pytest.skip("checks a machine with fewer than 2 cards")
+    out = _solverd(args, env_drop=("JG_SOLVER_MESH", "JG_SECTOR"))
     assert out.returncode == 2
-    assert item in out.stderr and "not ported" in out.stderr
+    assert says in out.stderr and "❌" in out.stderr
     assert "solverd up" not in out.stdout
 
 
