@@ -94,7 +94,7 @@ into the next.  Phases:
                every tenant certified.
 16. serve_tenants_8x1k_512 — 8 tenants, each the 1k-512 fleet of seed
                k = 0..7 on the shared 512² grid, served by one runner on
-               ``cuda``: one snapshot burst, then 100 delta bursts, each
+               ``cuda``: one snapshot burst, then 50 delta bursts, each
                answered by one super-step over the ``[8, 1024]`` slab.
                Every tick of every tenant certified; each tenant's reply
                bytes equal those of a single-tenant ``TickRunner`` on
@@ -122,7 +122,7 @@ into the next.  Phases:
                both, rows and distances equal; plan ms p50/p95 against the
                fresh sweep of one goal; ε of every start against the full
                field at most 0.05; launches per plan; a 3-cell toggle.
-20. serve_dynamic_1k_512 — 1k-512 served, 200 delta ticks, a 3-cell wall
+20. serve_dynamic_1k_512 — 1k-512 served, 100 delta ticks, a 3-cell wall
                closing near an agent's route every 10 ticks and opening
                10 later, the field queue drained after each tick (the
                daemon's idle window); under ``JG_DYNAMIC_WORLD=1`` and
@@ -202,10 +202,48 @@ into the next.  Phases:
                size (2 tenants of 4 agents, 24²) with a 30 s window, the
                daemon on the card: both tenants admitted, each completes
                a task, no eviction, resync or sequence gap.
-35. kernels — one JSON object describing every kernel of the paths, with
+35. parity_table — ``analysis/torch_parity_table.py``'s ``run_pair`` for
+               the rows ``empty 14x14 6a`` and ``ref-envelope 50a 100x100
+               empty`` at its ``--quick`` seed counts (3 each), on
+               ``cuda`` and on ``cpu``: equal (oracle makespan, parallel
+               makespan, oracle completed); each row's ratios printed
+               beside the JAX package's ``PARITY.md`` row (not checked).
+36. congestion — ``analysis/torch_congestion.py``'s ``run_one`` on the
+               3k-256 rung at seed 0 in its three modes (a warm solve,
+               then the timed one): each completes, the stale mode's
+               makespan equals phase 8's default run; ms/step, makespan.
+37. decent_premium — ``analysis/torch_decent_premium.py --rung medium``:
+               the four variants, each a subprocess on the card; each
+               completes and launches ``sweep_scan``, ``cent``'s makespan
+               equals phase 7's; ms/step per variant.
+38. roofline — ``analysis/torch_roofline.py`` at ``--chunks 2``: the
+               flagship's sampled chunks' fixpoint rounds by
+               ``sweep_scan`` equal those by ``sweep_plain`` on the card;
+               the flagship solved whole for its makespan; the
+               bandwidth-bound fraction against 3.35 TB/s of phase 9's
+               window ms/step and of the whole solve's mean.
+39. quality_gap — ``analysis/torch_quality_gap.py`` on ``REFERENCE_DEMO``
+               on ``cuda`` and ``cpu`` (equal), then the card alone on
+               ``1k-512`` against phase 7's makespan.
+40. field_fuzz — ``scripts/torch_field_fuzz.py``'s default seeds and edge
+               cases on the card: every repair equal to a full recompute.
+41. sector_fuzz — ``scripts/torch_sector_fuzz.py``'s default seeds on the
+               card (the planners' jit path): route validity, ε within
+               0.05, repair == recompute.
+42. field_bench — ``analysis/torch_field_bench.py`` at its ``--quick``
+               settings without the fleet: the repair section bit-equal
+               to full recomputes; the multi-field section measured on the
+               card: ``field_fused`` (multi) against the sweeps at
+               (16, 64, 128) and (4, 256, 256), codes equal, ms per field
+               from CUDA events, GO / NO-GO.
+43. sector_bench — ``analysis/torch_sector_bench.py``'s fresh-goal and ε
+               sections at 512², S = 64, with the 1024² full-sweep
+               baseline measured on the card: ε within 0.05.
+44. kernels — one JSON object describing every kernel of the paths, with
                its launches per mesh step (phase 25), per mesh tick
-               (phase 28, 2 x 2) and per live tick (phase 33).
-36. the last line: ``{"ok": true, "device": {...}}``.
+               (phase 28, 2 x 2), per live tick (phase 33) and, for the
+               multi instance, in phase 42's multi-field section.
+45. the last line: ``{"ok": true, "device": {...}}``.
 
 The live phases (31-34) run the C++ bus and manager and the port's daemon
 as processes, logs under ``build/live/``; the daemon reports its kernel
@@ -230,8 +268,9 @@ syncs), not scaling.
 Each path (phase 9 for ``sweep_scan``, 8 for the multi instance, 10 for
 the single instance, each served run of 12-16, 20-21 and 28 for the
 kernels it takes, the repair and sector phases 18-19, and the mesh phases
-22-26) is driven with every kernel's and the host syncs' counts set to 0
-just before it and read just after it (in phase 16 around each super-step burst, not around the
+22-26, and each of the twins' phases 35-43) is driven with every
+kernel's and the host syncs' counts set to 0 just before it and read just
+after it, and each of 35-43 prints its launches and seconds (in phase 16 around each super-step burst, not around the
 single-tenant runs it is compared with; in 18 around each event's
 repairs, not the full recomputes that check them; in 19 around each plan
 on the card).
@@ -315,7 +354,7 @@ SERVE_CONGESTED_TICKS = 100
 SERVE_FLAGSHIP_TICKS = 50
 TENANT_PARITY_TICKS = 60
 TENANTS = 8
-TENANT_TICKS = 100
+TENANT_TICKS = 50
 CHECKPOINT_STEP = 60
 NO_SNAPSHOT = 1 << 30  # snapshot_every: one snapshot, then deltas only
 REPAIR_GOALS = 16
@@ -324,7 +363,7 @@ SECTOR_CELLS = 64           # the planner's default sector side
 SECTOR_GOALS = 20
 SECTOR_STARTS = 2
 SECTOR_EPS = 0.05           # the committed bound on corridor suboptimality
-SERVE_DYNAMIC_TICKS = 200
+SERVE_DYNAMIC_TICKS = 100
 WALL_EVERY = 10             # ticks between a wall closing and opening
 SERVE_SECTOR_PARITY_TICKS = 60
 SERVE_SECTOR_TICKS = 100
@@ -334,6 +373,13 @@ MESH_SHARDS = 4             # the agent mesh of the sharded solves
 SERVE_MESH_PARITY_TICKS = 60
 SERVE_MESH_TENANT_TICKS = 30
 SERVE_MESH_TICKS = 100
+# The measurement twins' phases: the parity rows and seeds of
+# analysis/torch_parity_table.py --quick, the roofline's sampled chunks,
+# the multi-field bench's timed runs, the sector bench's reduced side.
+PARITY_ROWS = ("empty 14x14 6a", "ref-envelope 50a 100x100 empty")
+ROOFLINE_CHUNKS = 2
+MULTI_FIELD_REPEATS = 5
+SECTOR_BENCH_SIDE = 512
 # The counters of the repair and sector layers that the serve phases read.
 LAYER_COUNTERS = (
     "solverd.field_repairs", "solverd.field_repair_fallbacks",
@@ -737,27 +783,33 @@ def _verify_paths(width: int, free: np.ndarray, paths_pos: np.ndarray) -> bool:
     return True
 
 
+@contextlib.contextmanager
+def one_thread():
+    """One intra-op thread for CPU solves (many small ops), restored."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _timed_solve(grid, starts, tasks, cfg, device) -> tuple:
     """One solve with every count set to 0 just before it; returns its
     output, seconds, sweep_scan launches and host syncs (the fused
     instances' launches stay in ``field_fused.launches``)."""
     cpu = torch.device(device).type == "cpu"
-    threads = torch.get_num_threads()
-    if cpu:  # many small ops: intra-op threads cost more than they give
-        torch.set_num_threads(1)
     reset_counts()
-    try:
+    with one_thread() if cpu else contextlib.nullcontext():
         t0 = time.perf_counter()
         out = mapd.solve_offline(grid, starts, tasks, cfg, device=device)
         if not cpu:
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    finally:
-        torch.set_num_threads(threads)
     return out, secs, sweep_kernel.launches, hostsync.count
 
 
-def _parity(phase: str, scn, dev: torch.device) -> None:
+def _parity(phase: str, scn, dev: torch.device) -> int:
     grid, starts, tasks, cfg = scn.build(seed=0)
     with fused_env(""):
         (pc, sc, mc), secs_c, launches_c, syncs_c = _timed_solve(
@@ -774,10 +826,11 @@ def _parity(phase: str, scn, dev: torch.device) -> None:
     check(same, f"{scn.name}: cuda and cpu solves differ")
     check(launches_c > 0, f"{scn.name}: the CUDA solve launched no sweep_scan")
     check(launches_p == 0, f"{scn.name}: the CPU solve launched the kernel")
+    return mc
 
 
-def phase_parity(dev: torch.device) -> None:
-    _parity("parity", scenarios.REFERENCE_DEMO, dev)
+def phase_parity(dev: torch.device) -> int:
+    return _parity("parity", scenarios.REFERENCE_DEMO, dev)
 
 
 def phase_stale_parity(dev: torch.device) -> None:
@@ -2699,6 +2752,261 @@ def tenant_verdict(stdout: str) -> dict:
           and not sd.get("seq_gaps"), f"tenants_live: {sd}")
     return variant
 
+@contextlib.contextmanager
+def counted(out: dict):
+    """Every count set to 0 on entry; on exit ``out`` gets the seconds the
+    block took and its kernel launches and host syncs (``_counts``)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    yield
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = _counts()
+
+
+def _parity_md_row(name: str) -> str:
+    """The row of ``name`` in the JAX package's ``PARITY.md``, for the
+    reader (read only; nothing is checked against it)."""
+    path = REPO / "PARITY.md"
+    rows = [line for line in path.read_text().splitlines()
+            if line.startswith(f"| {name} |")] if path.exists() else []
+    return rows[0] if rows else "not in PARITY.md"
+
+
+def phase_parity_table(dev: torch.device) -> dict:
+    """``analysis/torch_parity_table.py``'s ``run_pair`` for two rows of
+    its table at the ``--quick`` seed counts, on the card and on the CPU:
+    the same (oracle makespan, parallel makespan, oracle completed)."""
+    from analysis import torch_parity_table as pt
+
+    out: dict = {"rows": {}}
+    cfgs = {c[0]: c for c in pt.configs(True)}
+    with fused_env(""), counted(out):
+        for name in PARITY_ROWS:
+            _, grid_fn, na, nt, seeds, distinct = cfgs[name]
+            grid = grid_fn()
+            pairs = []
+            for seed in range(seeds):
+                on_card = pt.run_pair(grid, na, nt, seed, distinct=distinct,
+                                      device=dev)
+                with one_thread():
+                    on_cpu = pt.run_pair(grid, na, nt, seed,
+                                         distinct=distinct, device="cpu")
+                check(on_card == on_cpu, f"parity_table {name} seed {seed}: "
+                      f"cuda {on_card} != cpu {on_cpu}")
+                pairs.append(on_card)
+            ratios = [mp / mo for mo, mp, ok in pairs if ok]
+            out["rows"][name] = {
+                "seeds": seeds, "pairs": pairs,
+                "mean_ratio": float(np.mean(ratios)) if ratios else None,
+                "max_ratio": float(np.max(ratios)) if ratios else None,
+                "oracle_deadlocks": sum(not ok for *_, ok in pairs),
+                "parity_md": _parity_md_row(name)}
+    emit("parity_table", **out)
+    check(out["launches"]["sweep"] > 0,
+          "parity_table: the card's solves launched no sweep_scan")
+    return out
+
+
+def phase_congestion(dev: torch.device, congested: dict) -> dict:
+    """``analysis/torch_congestion.py``'s ``run_one`` for its three modes
+    at seed 0 on the card (a warm solve, then the timed one)."""
+    from analysis import torch_congestion
+
+    out: dict = {"modes": {}}
+    modes = {"centralized": scenarios.CONGESTED,
+             "decent-fresh": scenarios.CONGESTED_DECENT,
+             "decent-stale": scenarios.CONGESTED_DECENT_STALE}
+    with fused_env(""), counted(out):
+        for name, scn in modes.items():
+            out["modes"][name] = {"mode": scn.mode,
+                                  **torch_congestion.run_one(scn, 0, dev)}
+    emit("congestion", **out)
+    for name, r in out["modes"].items():
+        check(r["completed"], f"congestion {name}: not completed")
+    check(out["modes"]["decent-stale"]["makespan"]
+          == congested["default_makespan"],
+          "congestion: the stale run's makespan differs from phase 8's")
+    check(out["launches"]["sweep"] > 0,
+          "congestion: the solves launched no sweep_scan")
+    return out
+
+
+def phase_decent_premium(medium: dict) -> dict:
+    """``analysis/torch_decent_premium.py --rung medium``: the four
+    variants, each in a subprocess on the card, launches from each child's
+    timed solve."""
+    from analysis import torch_decent_premium
+
+    out: dict = {}
+    with fused_env(""), counted(out):
+        rows = torch_decent_premium.run_variants("medium", cpu=False)
+    out["rows"] = rows
+    emit("decent_premium", **out)
+    check([r["variant"] for r in rows]
+          == list(torch_decent_premium.VARIANTS),
+          "decent_premium: a variant did not answer")
+    for r in rows:
+        check(r["completed"], f"decent_premium {r['variant']}: not completed")
+        check(r["kernel_launches"]["sweep_scan"] > 0,
+              f"decent_premium {r['variant']}: no sweep_scan launch")
+    check(rows[0]["makespan"] == medium["makespan"],
+          "decent_premium: cent's makespan differs from phase 7's")
+    return out
+
+
+def phase_roofline(dev: torch.device, flag: dict) -> dict:
+    """``analysis/torch_roofline.py`` at ``--chunks 2``: the fixpoint round
+    counts of the flagship's sampled chunks by ``sweep_scan`` equal those
+    by ``sweep_plain`` on the card; the flagship solved whole for its
+    makespan; the roofline over them with the flagship window's ms/step
+    (phase 9), and with the whole solve's mean."""
+    from analysis import torch_roofline as rl
+
+    scn = scenarios.FLAGSHIP
+    grid, starts, tasks, cfg = scn.build(seed=0)
+    r = cfg.replan_chunk_small
+    out: dict = {}
+    with counted(out):
+        counts = rl.sample_round_counts(grid, tasks, r, ROOFLINE_CHUNKS, dev,
+                                        log=lambda m: None)
+    plain = rl.sample_round_counts(grid, tasks, r, ROOFLINE_CHUNKS, dev,
+                                   sweep=sweep_kernel.sweep_plain,
+                                   log=lambda m: None)
+    solve: dict = {}
+    with fused_env(""), counted(solve):
+        makespan = rl.solve_makespan(cfg, starts, tasks, grid.free, dev)
+        torch.cuda.synchronize()
+    res = rl.roofline(counts, makespan, flag["ms_per_step"], len(tasks),
+                      cfg)
+    solve_ms = 1e3 * solve["seconds"] / makespan
+    out.update(round_counts=counts, round_counts_plain=plain,
+               hbm_gbps=rl.H100_HBM_GBPS, **res,
+               whole_solve={**solve, "makespan": makespan,
+                            "mean_ms_per_step": solve_ms,
+                            "bandwidth_bound_fraction":
+                                res["ideal_ms"] / solve_ms})
+    emit("roofline", **out)
+    check(counts == plain, f"roofline: rounds {counts} != plain {plain}")
+    check(out["launches"]["sweep"] == 4 * sum(counts),
+          "roofline: the rounds did not run on sweep_scan")
+    check(solve["launches"]["sweep"] > 0,
+          "roofline: the whole solve launched no sweep_scan")
+    return out
+
+
+def phase_quality_gap(dev: torch.device, ref_makespan: int,
+                      medium: dict) -> dict:
+    """``analysis/torch_quality_gap.py`` on ``REFERENCE_DEMO``, on the
+    card and on the CPU (equal), then on the card alone at the medium
+    rung, each against its own solve's makespan."""
+    from analysis import torch_quality_gap as qg
+
+    quiet = dict(log=lambda m: None)
+    out: dict = {}
+    with counted(out):
+        ref_card = qg.quality_gap(scenarios.REFERENCE_DEMO, ref_makespan, 8,
+                                  dev, **quiet)
+        med = qg.quality_gap(scenarios.MEDIUM, medium["makespan"], 8, dev,
+                             **quiet)
+    with one_thread():
+        ref_cpu = qg.quality_gap(scenarios.REFERENCE_DEMO, ref_makespan, 8,
+                                 "cpu", **quiet)
+    out.update(ref=ref_card, ref_equal=ref_card == ref_cpu, medium=med)
+    emit("quality_gap", **out)
+    check(ref_card == ref_cpu, f"quality_gap: cuda {ref_card} != cpu "
+          f"{ref_cpu}")
+    check(out["launches"]["sweep"] > 0,
+          "quality_gap: the card launched no sweep_scan")
+    return out
+
+
+def phase_field_fuzz(dev: torch.device) -> dict:
+    """``scripts/torch_field_fuzz.py``'s default seeds and its edge cases
+    on the card: every repair bit-equal to a full recompute."""
+    from scripts import torch_field_fuzz as ff
+
+    out: dict = {}
+    with counted(out):
+        out["exact_repairs"] = [ff.fuzz_seed(seed, 5, dev)
+                                for seed in range(4)]
+        ff.edge_cases(dev)
+    emit("field_fuzz", **out)
+    check(sum(out["exact_repairs"]) > 0,
+          "field_fuzz: no event took the exact-repair path")
+    check(out["launches"]["sweep"] > 0,
+          "field_fuzz: the card launched no sweep_scan")
+    return out
+
+
+def phase_sector_fuzz(dev: torch.device) -> dict:
+    """``scripts/torch_sector_fuzz.py``'s default seeds on the card (the
+    planners' jit path): the three contracts on every trial."""
+    from scripts import torch_sector_fuzz as sf
+
+    out: dict = {}
+    with env_vars({"JG_SECTOR_JIT": ""}), counted(out):
+        res = [sf.fuzz_seed(seed, 4, dev) for seed in range(6)]
+    out.update(pairs=[n for n, _ in res], eps_max=max(e for _, e in res),
+               eps_bound=sf.EPS)
+    emit("sector_fuzz", **out)
+    check(sum(out["pairs"]) >= 6, "sector_fuzz: too few reachable pairs")
+    check(out["eps_max"] <= sf.EPS, f"sector_fuzz: eps {out['eps_max']}")
+    check(out["launches"]["sweep"] > 0,
+          "sector_fuzz: the jit path launched no sweep_scan")
+    return out
+
+
+def phase_field_bench(dev: torch.device) -> dict:
+    """``analysis/torch_field_bench.py --quick --no-fleet`` on the card:
+    the repair section at 256², then the multi-field section measured
+    (codes equal, ms per field from CUDA events, the verdict)."""
+    from analysis import torch_field_bench as fb
+
+    out: dict = {}
+    with fused_env(""):
+        with counted(out):
+            out["repair_vs_full"] = fb.bench_repair(256, "warehouse", 4, 3,
+                                                    1, 1, dev)
+        multi: dict = {}
+        with counted(multi):
+            out["multi_field"] = fb.bench_multi_field(MULTI_FIELD_REPEATS,
+                                                      dev)
+    out["multi_field"].update(seconds=multi["seconds"],
+                              launches=multi["launches"])
+    emit("field_bench", **out)
+    check(out["repair_vs_full"]["bit_identical_to_full_recompute"],
+          "field_bench: a repair differs from the full recompute")
+    check(out["multi_field"]["codes_equal"],
+          "field_bench: the multi-field kernel's codes differ from the "
+          "sweeps'")
+    check(multi["launches"]["multi"] > 0 and multi["launches"]["sweep"] > 0,
+          "field_bench: the multi-field section did not run both kernels")
+    return out
+
+
+def phase_sector_bench(dev: torch.device) -> dict:
+    """``analysis/torch_sector_bench.py``'s fresh-goal and ε sections at
+    the reduced side of its ``--quick`` (512², S = 64), with the 1024²
+    full-sweep baseline measured on the card in the same run."""
+    from analysis import torch_sector_bench as sb
+    from p2p_distributed_tswap_tpu_torch.core.grid import Grid
+
+    free = np.asarray(Grid.random_obstacles(
+        SECTOR_BENCH_SIDE, SECTOR_BENCH_SIDE, 0.15, 1).free).copy()
+    out: dict = {}
+    with fused_env(""), env_vars({"JG_SECTOR_JIT": ""}), counted(out):
+        base = sb.full_sweep_baseline_ms(3, 1, dev)
+        out["fresh_goal"] = sb.bench_fresh_goal(free, [64], 8, 3, 2, 1, dev,
+                                                base)
+        out["epsilon"] = sb.bench_epsilon(free, 64, 4, 2, 1, dev)
+    out["resident_bytes"] = sb.resident_bytes(out["fresh_goal"], free)
+    emit("sector_bench", **out)
+    check(out["epsilon"]["within_bound"],
+          f"sector_bench: eps {out['epsilon']['eps_max']} past the bound")
+    check(out["launches"]["sweep"] > 0,
+          "sector_bench: the card launched no sweep_scan")
+    return out
+
 
 def _kernel_entry(name: str, replaces: str, tpu_kernel: str, launches: int,
                   rows: list, step_shape: list, card: str, **extra) -> dict:
@@ -2749,7 +3057,7 @@ def main(argv=None) -> int:
     fleet_build = start_fleet_build()  # g++ while the card works
     rows = phase_kernel(dev, card)
     fused = phase_fused(dev, card)
-    phase_parity(dev)
+    ref_makespan = phase_parity(dev)
     phase_stale_parity(dev)
     medium = phase_medium(dev)
     congested = phase_congested(dev)
@@ -2791,6 +3099,17 @@ def main(argv=None) -> int:
     phase_replay_live()
     live = phase_fleetsim_live()
     phase_tenants_live()
+    # the measurement twins of the solver side and the dynamic world
+    torch.cuda.empty_cache()
+    phase_parity_table(dev)
+    phase_congestion(dev, congested)
+    phase_decent_premium(medium)
+    phase_roofline(dev, flag)
+    phase_quality_gap(dev, ref_makespan, medium)
+    phase_field_fuzz(dev)
+    phase_sector_fuzz(dev)
+    field_bench = phase_field_bench(dev)
+    phase_sector_bench(dev)
     served = {
         "sweep_scan": {
             "1k-512": serve_medium["unset"]["launches_per_tick"]["sweep"],
@@ -2851,6 +3170,10 @@ def main(argv=None) -> int:
         # 1000 agents live, the daemon on the card (field path unset)
         k["launches_per_live_tick"] = live["tpu"]["daemon"][
             "launches_per_tick"][k["name"]]
+    # the multi-field bench's timed section (the fused kernel beside the
+    # sweeps, at its two shapes)
+    kernels[1]["launches_in_field_bench"] = \
+        field_bench["multi_field"]["launches"]["multi"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print_device_line()
     return 0

@@ -15,6 +15,13 @@
   port's daemon, on the card unless their ``--cpu`` asks for the CPU; they,
   ``analysis/torch_live_fleet.py`` and ``chip_smoke.py`` reach nothing of
   JAX through any import.
+- The solver-side and dynamic-world measurement twins
+  (``analysis/torch_{parity_table,congestion,decent_premium,roofline,
+  quality_gap,field_bench,sector_bench}.py``,
+  ``scripts/torch_{field,sector}_fuzz.py``) are ports, not copies: they
+  reach nothing of JAX, name no fixed ``/tmp`` path, write none of the
+  JAX package's result files by default, and exit nonzero without CUDA
+  unless ``--cpu`` is given.
 - The daemon serves the mesh (``--mesh`` / ``JG_SOLVER_MESH``, with or
   without tenants; virtual CPU shards under ``--cpu``) and the sector
   planner (``JG_SECTOR=1``), single- and multi-tenant; it refuses a
@@ -95,6 +102,7 @@ MODULES = {
     "p2p_distributed_tswap_tpu_torch.runtime.ha",
     "p2p_distributed_tswap_tpu_torch.obs.slo",
     "p2p_distributed_tswap_tpu_torch.obs.fleet_aggregator",
+    "p2p_distributed_tswap_tpu_torch.solver.oracle",
 }
 
 # Copied from the JAX package: the same code, with the package name
@@ -112,6 +120,8 @@ COPIES = (
     # the fleet aggregator and the control-plane HA helpers
     "runtime/simagent.py", "obs/slo.py", "obs/fleet_aggregator.py",
     "runtime/ha.py",
+    # the sequential oracle the parity twin holds the solver against
+    "solver/oracle.py",
 )
 
 
@@ -706,8 +716,21 @@ def _jax_names(names) -> list:
                   or n.startswith("p2p_distributed_tswap_tpu."))
 
 
+# The measurement twins of the solver side and the dynamic world: ports of
+# their originals (each keeps its original's CLI, plus ``--cpu``, its output
+# keys and the order of its computation), not copies pinned line for line.
+MEASUREMENT_TWINS = (
+    "analysis/torch_parity_table.py", "analysis/torch_congestion.py",
+    "analysis/torch_decent_premium.py", "analysis/torch_roofline.py",
+    "analysis/torch_quality_gap.py", "analysis/torch_field_bench.py",
+    "analysis/torch_sector_bench.py", "scripts/torch_field_fuzz.py",
+    "scripts/torch_sector_fuzz.py",
+)
+
+
 @pytest.mark.parametrize("path", [*sorted(TWINS), "chip_smoke.py",
-                                  "analysis/torch_live_fleet.py"])
+                                  "analysis/torch_live_fleet.py",
+                                  *MEASUREMENT_TWINS])
 def test_twins_and_chip_smoke_reach_no_jax(path):
     """No import of a twin, of ``chip_smoke.py`` or of the live-fleet
     reader, followed through every file of the repo it reaches (imports
@@ -801,3 +824,38 @@ def test_daemon_beacon_carries_its_kernel_launches(monkeypatch):
     assert gauges['solverd.kernel_launches{kernel="field_fused_single"}'] \
         == 3
     assert 'solverd.kernel_launches{kernel="field_fused_multi"}' in gauges
+
+
+def _docstrings(tree) -> set:
+    return {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+
+
+@pytest.mark.parametrize("twin", MEASUREMENT_TWINS)
+def test_measurement_twin_writes_no_original_result_by_default(twin):
+    """No fixed ``/tmp`` path, and no string of the code (docstrings
+    aside) names ``PARITY.md`` or a ``results/*_rNN.json`` artifact of the
+    JAX package: the twins' defaults are files of their own."""
+    text = (REPO / twin).read_text()
+    assert "/tmp" not in text
+    tree = ast.parse(text)
+    docs = _docstrings(tree)
+    strings = [n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)
+               and id(n) not in docs]
+    bad = [v for v in strings
+           if "PARITY.md" in v or re.search(r"_r\d+\.json", v)]
+    assert bad == []
+    assert not re.search(r"\bISSUE \d|\bPR \d", text)
+
+
+@pytest.mark.parametrize("twin", MEASUREMENT_TWINS)
+def test_measurement_twin_without_cuda_refuses_unless_cpu(no_cuda, twin):
+    """Without CUDA a twin exits nonzero at once, naming CUDA and
+    ``--cpu``, and writes nothing."""
+    out = _python([twin])
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "--cpu" in out.stderr
+    assert "Traceback" not in out.stderr
