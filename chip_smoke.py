@@ -55,6 +55,10 @@ into the next.  Phases:
 6. stale_parity — the same for ``ref-50x100x100-decent-stale``.
 7. medium   — ``1k-512`` (seed 0) solved to completion on the card, every
                recorded transition certified host-side.
+7b. host_prime — ``mapd.host_prime_fields`` (the JAX package's name for
+               the host-driven burst) on ``1k-512`` beside ``prime_fields``
+               from the same state: packed rows and ``need_replan`` equal;
+               the burst's seconds, launches and host syncs.
 8. congested — ``3k-256-congested-decent-stale`` (seed 0), the stale-view
                solve at full width, solved to completion with
                ``MAPD_FUSED=1`` (the multi kernel) and without (the sweeps):
@@ -122,7 +126,7 @@ into the next.  Phases:
                both, rows and distances equal; plan ms p50/p95 against the
                fresh sweep of one goal; ε of every start against the full
                field at most 0.05; launches per plan; a 3-cell toggle.
-20. serve_dynamic_1k_512 — 1k-512 served, 100 delta ticks, a 3-cell wall
+20. serve_dynamic_1k_512 — 1k-512 served, 60 delta ticks, a 3-cell wall
                closing near an agent's route every 10 ticks and opening
                10 later, the field queue drained after each tick (the
                daemon's idle window); under ``JG_DYNAMIC_WORLD=1`` and
@@ -166,9 +170,20 @@ into the next.  Phases:
                and 100 delta ticks, each reply equal to the same tick of
                phase 12's unset run; tick ms, ticks over 500 ms (none),
                per-shard resident bytes.
-29. fleet_build — ``mapd_bus`` and ``mapd_manager_centralized`` built by
-               g++ from ``cpp/`` (one translation unit each, started
-               after phase 2 and joined here); fails without g++.
+28b. sharded_steptime — ``analysis/torch_sharded_steptime.py`` at 5
+               steps: one device, the 8-way agent shard and 2 x 4 agents x
+               tiles, every shard a virtual shard of ``cuda:0``; positions
+               equal across the rows; ms/step each (the mesh's overhead on
+               one card, not scaling).
+28c. extreme_rehearsal — ``analysis/torch_extreme_rehearsal.py --probe
+               8`` at its defaults (2048 agents, 1024² warehouse, 2 x 4
+               virtual shards of ``cuda:0``, replan chunk 64): the banded
+               prime and 8 certified steps; the per-shard residency
+               arithmetic beside the card's peak allocation.
+29. fleet_build — ``mapd_bus``, ``mapd_manager_centralized`` and
+               ``mapd_agent_centralized`` built by g++ from ``cpp/`` (one
+               translation unit each, started after phase 2 and joined
+               here); fails without g++.
 30. reserved_astar — ``ops/reserved_astar.py`` on the 3k-256 rung's 256²
                warehouse, T = 512: ``plan_prioritized`` of 8 agents, then
                8 more against the table their paths fill, on ``cuda`` and
@@ -180,16 +195,18 @@ into the next.  Phases:
                (bisected to the injected lane 1's goal).
 32. replay_live — ``results/captures/ci_small.capture.json`` replayed
                through ``analysis/torch_fleetsim.py --replay-solver tpu``,
-               the daemon on the card, then with ``--cpu``: the
-               determinism verdict (the same completed task ids, no
-               duplicate, equal audit ledger and view digests).
+               the daemon on the card, and at the same time in a second
+               fleet with ``--cpu``: the chaos twin's determinism verdict
+               (the same completed task ids, equal audit ledger and view
+               digests, both outcomes ok).
 33. fleetsim_1k_512 — the fleetsim twin, closed loop, 1000 sim agents on
                its empty 512² map, 2 bus shards, 250 ms ticks, seed 1,
                settle 45 s and window 30 s: with ``--solver tpu`` (the
                daemon on the card; its banner must name the card, a task
                must complete, the daemon must launch ``sweep_scan`` and
-               every SLO of ``scripts/fleetsim_ci.spec.json`` must pass)
-               and ``--solver native``.  Fleet tasks/s, completion,
+               every SLO of ``scripts/fleetsim_ci.spec.json`` must pass);
+               the ``--solver native`` run at this size is left to
+               ``--fleet-rungs 512:1000``.  Fleet tasks/s, completion,
                dispatched and completed; per request, from the trace
                spans of the window, the manager's plan round trip, the
                daemon's tick of the same request and the round trip less
@@ -202,6 +219,25 @@ into the next.  Phases:
                size (2 tenants of 4 agents, 24²) with a 30 s window, the
                daemon on the card: both tenants admitted, each completes
                a task, no eviction, resync or sequence gap.
+34b. chaos_live — ``scripts/torch_chaos_gate.py --ci`` on the committed
+               capture: the determinism pair, the daemon on the card
+               SIGKILLed mid-window and respawned (detected, localized,
+               reconverged; both daemons' banners name the card), the
+               warm-standby failover and the federated manager kill, every
+               verdict green; the respawned daemon's launches.
+34c. mesh_bench — ``analysis/torch_mesh_bench.py --ticks 12``, run while
+               phase 34b runs (two fleets, each its own pool): the flat,
+               2- and 8-way rungs (each a subprocess on virtual shards of
+               ``cuda:0``) bit-identical, and the replay proof (the chaos
+               twin's determinism pair through a 2-way mesh daemon on the
+               card) ok; each rung's and daemon's launches.
+34d. mesh_smoke — ``scripts/torch_mesh_smoke.py`` in process: the digest
+               gate (flat and 2-way mesh runners, virtual shards of
+               ``cuda:0``, byte-identical replies and equal digests every
+               tick) and the live half (the C++ manager, two agents, the
+               daemon on ``--mesh 2`` over virtual shards of the card
+               through ``JG_SOLVER_MESH_VIRTUAL=1``: both tasks done, the
+               mesh banner on ``cuda:0``).
 35. parity_table — ``analysis/torch_parity_table.py``'s ``run_pair`` for
                the rows ``empty 14x14 6a`` and ``ref-envelope 50a 100x100
                empty`` at its ``--quick`` seed counts (3 each), on
@@ -241,14 +277,17 @@ into the next.  Phases:
                baseline measured on the card: ε within 0.05.
 44. kernels — one JSON object describing every kernel of the paths, with
                its launches per mesh step (phase 25), per mesh tick
-               (phase 28, 2 x 2), per live tick (phase 33) and, for the
-               multi instance, in phase 42's multi-field section.
+               (phase 28, 2 x 2), per live tick (phase 33), in each of
+               phases 7b, 28b-c and 34b-d (``launches_per_twin_phase``)
+               and, for the multi instance, in phase 42's multi-field
+               section.
 45. the last line: ``{"ok": true, "device": {...}}``.
 
-The live phases (31-34) run the C++ bus and manager and the port's daemon
+The live phases (31-34d) run the C++ bus and manager and the port's daemon
 as processes, logs under ``build/live/``; the daemon reports its kernel
 launches on its metrics beacons (``solverd.kernel_launches``), a fresh
-process whose counts start at 0.
+process whose counts start at 0, and prints them to its log when it is
+stopped, in all and since its banner.
 
     python3 chip_smoke.py --fleet-rungs SIDE:AGENTS[,SIDE:AGENTS...]
 
@@ -268,7 +307,8 @@ syncs), not scaling.
 Each path (phase 9 for ``sweep_scan``, 8 for the multi instance, 10 for
 the single instance, each served run of 12-16, 20-21 and 28 for the
 kernels it takes, the repair and sector phases 18-19, and the mesh phases
-22-26, and each of the twins' phases 35-43) is driven with every
+22-26, and each of the twins' phases 7b, 28b-c, 34d (its digest gate)
+and 35-43) is driven with every
 kernel's and the host syncs' counts set to 0 just before it and read just
 after it, and each of 35-43 prints its launches and seconds (in phase 16 around each super-step burst, not around the
 single-tenant runs it is compared with; in 18 around each event's
@@ -295,6 +335,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -363,7 +404,7 @@ SECTOR_CELLS = 64           # the planner's default sector side
 SECTOR_GOALS = 20
 SECTOR_STARTS = 2
 SECTOR_EPS = 0.05           # the committed bound on corridor suboptimality
-SERVE_DYNAMIC_TICKS = 100
+SERVE_DYNAMIC_TICKS = 60
 WALL_EVERY = 10             # ticks between a wall closing and opening
 SERVE_SECTOR_PARITY_TICKS = 60
 SERVE_SECTOR_TICKS = 100
@@ -895,6 +936,36 @@ def phase_medium(dev: torch.device) -> dict:
     check(inv_ok, "1k-512 recorded an illegal transition")
     return {"paths": paths, "makespan": makespan,
             "ms_per_step": 1e3 * secs / max(makespan, 1)}
+
+
+def phase_host_prime(dev: torch.device) -> dict:
+    """``mapd.host_prime_fields`` against ``prime_fields`` on the 1k-512
+    rung (seed 0) on the card: the same state before the burst, equal
+    packed rows and ``need_replan`` after it; the host-driven burst's
+    seconds, launches and host syncs (counted around it alone)."""
+    grid, starts, tasks, cfg = scenarios.MEDIUM.build(seed=0)
+    s0, _ = mapd.prepare_state_unprimed(cfg, starts, tasks, dev)
+    free = torch.as_tensor(np.asarray(grid.free), dtype=torch.bool,
+                           device=dev)
+    out: dict = {"scenario": scenarios.MEDIUM.name,
+                 "replan_chunk": cfg.replan_chunk}
+    with fused_env(""):
+        plain = mapd.prime_fields(cfg, s0.replace(dirs=s0.dirs.clone()),
+                                  free)
+        torch.cuda.synchronize()
+        with counted(out):
+            hosted = mapd.host_prime_fields(
+                cfg, s0.replace(dirs=s0.dirs.clone()), free)
+            torch.cuda.synchronize()
+    out["dirs_equal"] = torch.equal(hosted.dirs, plain.dirs)
+    out["need_replan_equal"] = torch.equal(hosted.need_replan,
+                                           plain.need_replan)
+    emit("host_prime", **out)
+    check(out["dirs_equal"] and out["need_replan_equal"],
+          "host_prime: host_prime_fields differs from prime_fields")
+    check(out["launches"]["sweep"] > 0,
+          "host_prime: the burst launched no sweep_scan")
+    return out
 
 
 def _steps(cfg, s, tasks_t, free, steps: int, step=None, step_free=None,
@@ -2418,6 +2489,53 @@ def phase_serve_mesh_medium(dev: torch.device, unset_datas: list) -> dict:
     return out
 
 
+STEPTIME_STEPS = 5
+REHEARSAL_PROBE = 8
+
+
+def phase_sharded_steptime(dev: torch.device) -> dict:
+    """``analysis/torch_sharded_steptime.py`` at ``--steps 5``: its three
+    rows (one device, the 8-way agent shard, 2 x 4 agents x tiles), every
+    shard a virtual shard of ``cuda:0``; positions equal across the rows
+    after the warm-up and the timed steps."""
+    from analysis import torch_sharded_steptime as st
+
+    out: dict = {}
+    with fused_env(""), counted(out):
+        res = st.run(STEPTIME_STEPS, dev, log=lambda m: None)
+    out.update(steps=res["steps"], virtual=res["virtual"],
+               rows=[{"variant": name, "ms_per_step": ms,
+                      "vs_single": ratio} for name, ms, ratio in res["rows"]],
+               positions_equal=True)
+    emit("sharded_steptime", **out)
+    check(out["launches"]["sweep"] > 0,
+          "sharded_steptime: the rows launched no sweep_scan")
+    return out
+
+
+def phase_extreme_rehearsal(dev: torch.device) -> dict:
+    """``analysis/torch_extreme_rehearsal.py --probe 8`` at its defaults
+    (2048 agents, the 1024² warehouse, a 2 x 4 mesh of virtual shards of
+    ``cuda:0``, replan chunk 64): the banded prime and 8 steps with the
+    step invariants folded on the card; the per-shard residency
+    arithmetic beside the card's peak allocation."""
+    from analysis import torch_extreme_rehearsal as er
+
+    args = er.parser().parse_args(["--probe", str(REHEARSAL_PROBE)])
+    out: dict = {}
+    with fused_env(""), counted(out):
+        res = er.rehearse(args, dev, log=lambda m: None)
+    res.pop("state")
+    out.update(res)
+    emit("extreme_rehearsal", **out)
+    check(res["invariants_ok"], "extreme_rehearsal: a step broke an "
+          "invariant")
+    check(out["launches"]["sweep"] > 0,
+          "extreme_rehearsal: the probe launched no sweep_scan")
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the live fleet: the C++ manager over busd against the port's daemon
 # ---------------------------------------------------------------------------
@@ -2426,7 +2544,10 @@ REPO = Path(__file__).resolve().parent
 LIVE_DIR = REPO / "build" / "live"  # logs of the live phases (git-ignored)
 FLEET_BINARIES = (("mapd_bus", "cpp/busd/main.cpp"),
                   ("mapd_manager_centralized",
-                   "cpp/manager_centralized/main.cpp"))
+                   "cpp/manager_centralized/main.cpp"),
+                  # the mesh smoke's live half runs real agents
+                  ("mapd_agent_centralized",
+                   "cpp/agent_centralized/main.cpp"))
 # 1000 agents on fleetsim's own empty 512² map, as BASELINE.json's
 # deployment (1k agents, 512², Manager --solver=tpu), with fleetsim's own
 # settle and window: a task there is hundreds of moves, so a window that
@@ -2582,13 +2703,31 @@ def _card_banner(log: Path) -> str:
     return banner
 
 
-def _live(cmd: list, what: str) -> subprocess.CompletedProcess:
-    proc = subprocess.run([sys.executable, *map(str, cmd)], cwd=REPO,
-                          capture_output=True, text=True,
-                          timeout=LIVE_TIMEOUT_S)
-    check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n"
-          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+def _spawn(cmd: list) -> subprocess.Popen:
+    """A live twin started in the background (see :func:`_reap`)."""
+    proc = subprocess.Popen([sys.executable, *map(str, cmd)], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    proc.started = time.perf_counter()
     return proc
+
+
+def _reap(proc: subprocess.Popen, what: str) -> subprocess.CompletedProcess:
+    """Wait for a twin from :func:`_spawn` (at most ``LIVE_TIMEOUT_S`` from
+    its start, then killed); raises unless it exited 0."""
+    left = LIVE_TIMEOUT_S - (time.perf_counter() - proc.started)
+    try:
+        out, err = proc.communicate(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n"
+          f"{out[-3000:]}\n{err[-3000:]}")
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def _live(cmd: list, what: str) -> subprocess.CompletedProcess:
+    return _reap(_spawn(cmd), what)
 
 
 def phase_audit_live() -> dict:
@@ -2613,50 +2752,38 @@ def phase_audit_live() -> dict:
     return out
 
 
-def determinism(a: dict, b: dict) -> dict:
-    """Two replays of one capture agree: the identical completed task-id
-    set, no duplicate completion, equal audit ledger and view digests at
-    the final watermark, and both outcomes ok (the contract of
-    ``obs/capture.py``)."""
-    digests = {}
-    for key in ("ledger", "view"):
-        da, db = a["digests"].get(key), b["digests"].get(key)
-        digests[key] = (da is not None and db is not None
-                        and (da["digest"], da["count"])
-                        == (db["digest"], db["count"]))
-    ok = (a["completed_ids"] == b["completed_ids"]
-          and a["done_dups"] == b["done_dups"] == 0
-          and all(digests.values()) and a["ok"] and b["ok"])
-    return {"ok": ok, "completed": len(a["completed_ids"]),
-            "completed_equal": a["completed_ids"] == b["completed_ids"],
-            "digests_equal": digests,
-            "done_dups": [a["done_dups"], b["done_dups"]]}
-
-
 def phase_replay_live() -> dict:
     """``results/captures/ci_small.capture.json`` replayed with
     ``--replay-solver tpu`` through the fleetsim twin, the daemon on the
-    card, then on the CPU; the determinism verdict between the two."""
+    card and, in a second fleet at the same time, on the CPU; the chaos
+    twin's determinism verdict between the two
+    (``scripts/torch_chaos_gate.determinism_verdict``)."""
+    from scripts import torch_chaos_gate
+
+    t0 = time.perf_counter()
+    procs = {label: _spawn(
+        ["analysis/torch_fleetsim.py", "--replay",
+         "results/captures/ci_small.capture.json", "--replay-solver", "tpu",
+         *extra, "--log-dir", LIVE_DIR / f"replay_{label}",
+         "--out", LIVE_DIR / f"replay_{label}" / "replay.json"])
+        for label, extra in (("cuda", []), ("cpu", ["--cpu"]))}
     runs = {}
-    for label, extra in (("cuda", []), ("cpu", ["--cpu"])):
+    for label, proc in procs.items():
+        _reap(proc, f"replay_live {label}")
         d = LIVE_DIR / f"replay_{label}"
-        t0 = time.perf_counter()
-        _live(["analysis/torch_fleetsim.py", "--replay",
-               "results/captures/ci_small.capture.json",
-               "--replay-solver", "tpu", *extra, "--log-dir", d,
-               "--out", d / "replay.json"], f"replay_live {label}")
         res = json.loads((d / "replay.json").read_text())["replay"]
         banner = (_card_banner if label == "cuda" else _banner)(
             d / "replay" / "solverd.log")
-        runs[label] = {"result": res, "banner": banner,
-                       "seconds": round(time.perf_counter() - t0, 1)}
-    verdict = determinism(runs["cuda"]["result"], runs["cpu"]["result"])
+        runs[label] = {"result": res, "banner": banner}
+    verdict = torch_chaos_gate.determinism_verdict(runs["cuda"]["result"],
+                                                   runs["cpu"]["result"])
     check(verdict["ok"], f"replay_live: determinism verdict {verdict}")
     check("device=cpu [cpu]" in runs["cpu"]["banner"],
           "replay_live: the second run's daemon is not on the CPU")
     out = {"capture": "results/captures/ci_small.capture.json",
-           "verdict": verdict,
-           **{label: {"banner": r["banner"], "seconds": r["seconds"],
+           "verdict": verdict, "concurrent": True,
+           "seconds": round(time.perf_counter() - t0, 1),
+           **{label: {"banner": r["banner"],
                       "completed": r["result"]["completed"],
                       "expected": r["result"]["expected"],
                       "wall_s": r["result"]["wall_s"],
@@ -2667,16 +2794,16 @@ def phase_replay_live() -> dict:
     return out
 
 
-def fleet_rung(phase: str, args: list) -> dict:
+def fleet_rung(phase: str, args: list, solvers=("tpu", "native")) -> dict:
     """One fleetsim twin rung: the port's daemon on the card (``--solver
-    tpu``), then the manager's own planner (``--solver native``), at the
-    same size in the same call (``analysis/torch_live_fleet.py`` runs each
-    and reads its window)."""
+    tpu``), then, unless ``solvers`` leaves it out, the manager's own
+    planner (``--solver native``), at the same size in the same call
+    (``analysis/torch_live_fleet.py`` runs each and reads its window)."""
     from analysis import torch_live_fleet
 
     runs = {solver: torch_live_fleet.run(solver, args,
                                          LIVE_DIR / f"{phase}_{solver}")
-            for solver in ("tpu", "native")}
+            for solver in solvers}
     tpu = runs["tpu"]
     want = f"device=cuda:0 [{torch.cuda.get_device_name(0)}]"
     check(want in (tpu["banner"] or ""),
@@ -2695,8 +2822,11 @@ def fleet_rung(phase: str, args: list) -> dict:
 
 
 def phase_fleetsim_live() -> dict:
-    """The fleetsim twin, closed loop, 1000 agents on its 512² map."""
-    return fleet_rung("fleetsim_1k_512", FLEETSIM_ARGS)
+    """The fleetsim twin, closed loop, 1000 agents on its 512² map, the
+    daemon on the card; the native planner's run at this size is left to
+    ``--fleet-rungs 512:1000`` (its 100 s went to the chaos and mesh
+    phases)."""
+    return fleet_rung("fleetsim_1k_512", FLEETSIM_ARGS, solvers=("tpu",))
 
 
 def fleet_rungs_only(spec: str) -> int:
@@ -2751,6 +2881,147 @@ def tenant_verdict(stdout: str) -> dict:
     check(not sd.get("tenant_resyncs") and not sd.get("tenant_evictions")
           and not sd.get("seq_gaps"), f"tenants_live: {sd}")
     return variant
+
+def daemon_launches(log_dir: Path) -> dict:
+    """The kernel launches of every port daemon that logged under
+    ``log_dir``: each prints its counts when it is stopped (SIGTERM), in
+    all and since its ``solverd up`` banner; summed over the daemons, with
+    the number of reports."""
+    import re
+
+    total: dict = {}
+    served: dict = {}
+    reports = 0
+    for log in sorted(Path(log_dir).rglob("solverd*.log")):
+        for m in re.finditer(r"solverd kernel launches (\{.*\})",
+                             log.read_text(errors="replace")):
+            rec = json.loads(m.group(1))
+            reports += 1
+            for acc, key in ((total, "total"), (served, "since_up")):
+                for k, n in rec[key].items():
+                    acc[k] = acc.get(k, 0) + n
+    return {"reports": reports, "total": total, "since_up": served}
+
+
+CHAOS_CAPTURE = "results/captures/ci_small.capture.json"
+MESH_BENCH_TICKS = 12
+
+
+def phase_chaos_live() -> dict:
+    """``scripts/torch_chaos_gate.py --ci`` on the committed capture: the
+    determinism pair, the daemon on the card SIGKILLed mid-window and
+    respawned (it must be detected and localized, and the fleet must
+    reconverge with nothing lost or duplicated), the warm-standby
+    failover and the federated manager kill; every verdict green."""
+    d = LIVE_DIR / "chaos"
+    t0 = time.perf_counter()
+    proc = _live(["scripts/torch_chaos_gate.py", "--capture", CHAOS_CAPTURE,
+                  "--ci", "--log-dir", d, "--out", d / "chaos.json"],
+                 "chaos_live")
+    doc = json.loads((d / "chaos.json").read_text())
+    rows = {v["fault"]: v for v in doc["matrix"]}
+    kill = rows["solverd_sigkill"]
+    kill_dir = next(d.glob("*_solverd_sigkill"))
+    out = {"capture": CHAOS_CAPTURE,
+           "verdicts": {v["fault"]: v["verdict"] for v in doc["matrix"]},
+           "determinism": doc["determinism"],
+           "kill": {k: kill[k] for k in ("detected", "localized", "healed",
+                                         "outcome_ok", "fault_detail",
+                                         "elapsed_s")},
+           "kill_notes": kill["replay"]["chaos_notes"],
+           "banners": [_banner(log) for log in sorted(
+               kill_dir.glob("solverd*.log"))],
+           "elapsed_s": {v["fault"]: v["elapsed_s"] for v in doc["matrix"]},
+           "last_line": proc.stdout.strip().splitlines()[-1],
+           "launches": daemon_launches(kill_dir),
+           "seconds": round(time.perf_counter() - t0, 1)}
+    emit("chaos_live", **out)
+    check(all(v == "green" for v in out["verdicts"].values()),
+          f"chaos_live: a verdict is not green: {out['verdicts']}")
+    check(bool(doc["determinism"]) and doc["determinism"]["ok"],
+          "chaos_live: the determinism pair disagrees")
+    check(kill["detected"] and kill["localized"],
+          "chaos_live: the daemon's kill was not detected and localized")
+    want = f"device=cuda:0 [{torch.cuda.get_device_name(0)}]"
+    check(len(out["banners"]) == 2 and all(want in b for b in out["banners"]),
+          f"chaos_live: the daemon and its respawn not both on the card: "
+          f"{out['banners']}")
+    check(out["launches"]["since_up"].get("sweep_scan", 0) > 0,
+          "chaos_live: the respawned daemon launched no sweep_scan")
+    return out
+
+
+def phase_mesh_smoke() -> dict:
+    """``scripts/torch_mesh_smoke.py`` on the card, in process: the digest
+    gate (a flat and a 2-way mesh runner, virtual shards of ``cuda:0``,
+    byte-identical replies and equal digests on every tick; the unset
+    spec resolves to the flat path), then the live half (the C++ manager,
+    two agents and the daemon on ``--mesh 2`` over virtual shards of the
+    card: both tasks done, the mesh banner)."""
+    from scripts import torch_mesh_smoke
+
+    d = LIVE_DIR / "mesh_smoke"
+    out: dict = {}
+    quiet = dict(log=lambda m: None)
+    with env_vars({"JG_SOLVER_MESH": ""}), counted(out):
+        ticks = torch_mesh_smoke.digest_gate("cuda", **quiet)
+    live = torch_mesh_smoke.live_gate(str(d), **quiet)
+    out.update(digest_gate={"ticks": len(ticks), "equal": True},
+               live=live, daemon_launches=daemon_launches(d))
+    emit("mesh_smoke", **out)
+    check(out["launches"]["sweep"] > 0,
+          "mesh_smoke: the digest gate launched no sweep_scan")
+    banner = _card_banner(d / "solverd.log")
+    check("mesh=2x1" in banner and "virtual" in banner,
+          f"mesh_smoke: no virtual 2-way mesh in the banner: {banner}")
+    check(live.get("done", 0) >= 2, f"mesh_smoke: live half {live}")
+    check(out["daemon_launches"]["since_up"].get("sweep_scan", 0) > 0,
+          "mesh_smoke: the mesh daemon launched no sweep_scan")
+    return out
+
+
+def start_mesh_bench() -> subprocess.Popen:
+    """``analysis/torch_mesh_bench.py`` started in the background: it runs
+    while ``chaos_live`` does (each replays the capture through its own
+    bus pool, manager and daemon); :func:`phase_mesh_bench` reaps it."""
+    d = LIVE_DIR / "mesh_bench"
+    return _spawn(["analysis/torch_mesh_bench.py", "--ticks",
+                   MESH_BENCH_TICKS, "--log-dir", d,
+                   "--out", d / "mesh_bench.json"])
+
+
+def phase_mesh_bench(proc: subprocess.Popen) -> dict:
+    """``analysis/torch_mesh_bench.py`` on the card: the flat, 2- and 8-way
+    rungs, each a subprocess on virtual shards of ``cuda:0``, bit-identical
+    (reply fingerprints and audit digests); the replay proof (the chaos
+    twin's determinism pair through a 2-way mesh daemon on the card)
+    ok."""
+    d = LIVE_DIR / "mesh_bench"
+    _reap(proc, "mesh_bench")
+    doc = json.loads((d / "mesh_bench.json").read_text())
+    replay = doc["replay"] or {}
+    banners = [_banner(log) for log in sorted(d.rglob("solverd*.log"))]
+    out = {"ticks": MESH_BENCH_TICKS, "bit_identical": doc["bit_identical"],
+           "rungs": doc["rungs"], "replay": replay, "banners": banners,
+           "replay_launches": daemon_launches(d),
+           "concurrent_with": "chaos_live",
+           "seconds": round(time.perf_counter() - proc.started, 1)}
+    emit("mesh_bench", **out)
+    check(doc["bit_identical"], "mesh_bench: the rungs differ")
+    check(replay.get("determinism_ok") is True,
+          f"mesh_bench: the replay proof is not ok: {replay}")
+    want = f"device=cuda:0 [{torch.cuda.get_device_name(0)}]"
+    check(len(banners) == 2 and all(
+        want in b and "mesh=2x1" in b and "virtual" in b for b in banners),
+        f"mesh_bench: the replay daemons not 2-way meshes of the card: "
+        f"{banners}")
+    for r in doc["rungs"]:
+        check(r["kernel_launches"]["sweep_scan"] > 0,
+              f"mesh_bench: rung {r['mesh']} launched no sweep_scan")
+    check(out["replay_launches"]["since_up"].get("sweep_scan", 0) > 0,
+          "mesh_bench: the replay's mesh daemons launched no sweep_scan")
+    return out
+
 
 @contextlib.contextmanager
 def counted(out: dict):
@@ -3060,6 +3331,7 @@ def main(argv=None) -> int:
     ref_makespan = phase_parity(dev)
     phase_stale_parity(dev)
     medium = phase_medium(dev)
+    host_prime = phase_host_prime(dev)
     congested = phase_congested(dev)
     flag = phase_flagship(dev)
     single = phase_flagship_single(dev, flag)
@@ -3091,6 +3363,8 @@ def main(argv=None) -> int:
     extreme.pop("trail")
     phase_serve_mesh_parity(dev)
     mesh_serve = phase_serve_mesh_medium(dev, kept.pop("datas"))
+    steptime = phase_sharded_steptime(dev)
+    rehearsal = phase_extreme_rehearsal(dev)
     # the live fleet: the daemon is a second process on the card
     torch.cuda.empty_cache()
     phase_fleet_build(fleet_build)
@@ -3099,6 +3373,10 @@ def main(argv=None) -> int:
     phase_replay_live()
     live = phase_fleetsim_live()
     phase_tenants_live()
+    bench = start_mesh_bench()
+    chaos = phase_chaos_live()
+    mesh_bench = phase_mesh_bench(bench)
+    mesh_smoke = phase_mesh_smoke()
     # the measurement twins of the solver side and the dynamic world
     torch.cuda.empty_cache()
     phase_parity_table(dev)
@@ -3174,9 +3452,45 @@ def main(argv=None) -> int:
     # sweeps, at its two shapes)
     kernels[1]["launches_in_field_bench"] = \
         field_bench["multi_field"]["launches"]["multi"]
+    # the host prime and the chaos and mesh twins: in process, the phase's
+    # own counts; in a daemon, its counts since its banner; in the mesh
+    # bench's rungs, each rung process's
+    twin_counts = {
+        "host_prime": host_prime["launches"],
+        "sharded_steptime": steptime["launches"],
+        "extreme_rehearsal": rehearsal["launches"],
+        "mesh_smoke": mesh_smoke["launches"],
+        "mesh_smoke_daemon": _as_counter(
+            mesh_smoke["daemon_launches"]["since_up"]),
+        "chaos_live_daemon": _as_counter(chaos["launches"]["since_up"]),
+        "mesh_bench_rungs": _as_counter(_summed(
+            r["kernel_launches"] for r in mesh_bench["rungs"])),
+        "mesh_bench_replay_daemons": _as_counter(
+            mesh_bench["replay_launches"]["since_up"]),
+    }
+    for k in kernels:
+        c = counter[k["name"]]
+        k["launches_per_twin_phase"] = {
+            phase: counts.get(c, 0) for phase, counts in twin_counts.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print_device_line()
     return 0
+
+
+def _summed(dicts) -> dict:
+    out: dict = {}
+    for d in dicts:
+        for k, n in d.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def _as_counter(launches: dict) -> dict:
+    """A daemon's or a rung's launches by kernel name, keyed as
+    :func:`_counts` keys them."""
+    names = {"sweep_scan": "sweep", "field_fused_multi": "multi",
+             "field_fused_single": "single"}
+    return {names[k]: n for k, n in launches.items() if k in names}
 
 
 def print_device_line() -> None:

@@ -55,7 +55,7 @@ from p2p_distributed_tswap_tpu_torch.ops.distance import (
     PACKED_LANES,
     window_fixpoint,
 )
-from p2p_distributed_tswap_tpu_torch.solver.mapd import resolve_device
+from p2p_distributed_tswap_tpu_torch.device import resolve_device
 
 # fallback thresholds as fractions of the grid cell count: the dirty
 # cascade gives up past MAX_DIRTY_FRAC (a change that big IS a full

@@ -47,6 +47,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from p2p_distributed_tswap_tpu_torch.device import resolve_device
 from p2p_distributed_tswap_tpu_torch.ops.distance import DIR_DXDY, DIR_STAY
 
 NO_PARENT = 0xF
@@ -63,10 +64,6 @@ def _device(device, *tensors) -> torch.device:
         for t in tensors:
             if isinstance(t, torch.Tensor):
                 return t.device
-    # imported here: solver.mapd imports the ops package, which exports
-    # this module's names
-    from p2p_distributed_tswap_tpu_torch.solver.mapd import resolve_device
-
     return resolve_device(device)
 
 

@@ -63,7 +63,7 @@ from p2p_distributed_tswap_tpu_torch.ops.distance import (
     packed_cells,
     window_fixpoint,
 )
-from p2p_distributed_tswap_tpu_torch.solver.mapd import resolve_device
+from p2p_distributed_tswap_tpu_torch.device import resolve_device
 
 SECTOR_ENV = "JG_SECTOR"
 SECTOR_CELLS_ENV = "JG_SECTOR_CELLS"

@@ -58,7 +58,10 @@ sweeps of a fresh batch split over them (and banded over the tiles), the
 step's next hops read where the rows live.  Replies stay byte-identical to
 the single-device daemon's.  On ``--cpu`` the mesh is virtual (every shard
 on the CPU); on the card it takes A*T CUDA devices and exits 2 when there
-are fewer.  A malformed spec exits 2; ``1`` and ``1x1`` are the flat path.
+are fewer, unless ``JG_SOLVER_MESH_VIRTUAL=1`` lays every shard on
+``cuda:0`` (a virtual mesh of one card, which measures what the mesh costs
+there, not how it scales).  A malformed spec exits 2; ``1`` and ``1x1``
+are the flat path.
 
 Usage: python -m p2p_distributed_tswap_tpu_torch.runtime.solverd
            [--port 7400] [--map FILE] [--capacity-min 16] [--warm N]
@@ -2550,6 +2553,15 @@ def multi_tenant_loop(bus, runner: MultiTenantRunner, slab: TenantSlab,
         pending = nxt_pending
 
 
+VIRTUAL_MESH_ENV = "JG_SOLVER_MESH_VIRTUAL"
+
+
+def virtual_mesh_on_card() -> bool:
+    """Whether a mesh on the card lays every shard on ``cuda:0``
+    (``JG_SOLVER_MESH_VIRTUAL``) instead of taking A*T cards."""
+    return os.environ.get(VIRTUAL_MESH_ENV, "") not in ("", "0")
+
+
 def refusal(args) -> Optional[str]:
     """Why the daemon refuses to start with these arguments (or None): a
     custom plan topic in multi-tenant mode (as the JAX daemon refuses it),
@@ -2564,7 +2576,8 @@ def refusal(args) -> Optional[str]:
         mesh_shape = solver_mesh.mesh_spec_from_env(mesh_spec(args))
     except ValueError as e:
         return str(e)
-    if mesh_shape is not None and not args.cpu:
+    if mesh_shape is not None and not args.cpu \
+            and not virtual_mesh_on_card():
         try:
             solver_mesh.SolverMesh(*mesh_shape)
         except RuntimeError as e:
@@ -2584,13 +2597,16 @@ def mesh_spec(args) -> Optional[str]:
 def build_mesh(args, grid: Grid) -> Optional["solver_mesh.SolverMesh"]:
     """The daemon's mesh, or None for the flat path: virtual CPU shards
     under ``--cpu`` (the JAX daemon forces virtual CPU devices there),
-    else the first A*T CUDA devices.  Raises ValueError or RuntimeError
-    for a spec the grid or the machine cannot take."""
+    virtual shards of ``cuda:0`` under ``JG_SOLVER_MESH_VIRTUAL``, else the
+    first A*T CUDA devices.  Raises ValueError or RuntimeError for a spec
+    the grid or the machine cannot take."""
     shape = solver_mesh.mesh_spec_from_env(mesh_spec(args))
     if shape is None:
         return None
-    devices = (virtual_mesh.virtual_devices(shape[0] * shape[1], "cpu")
-               if args.cpu else None)
+    n = shape[0] * shape[1]
+    devices = (virtual_mesh.virtual_devices(n, "cpu") if args.cpu
+               else virtual_mesh.virtual_devices(n, "cuda:0")
+               if virtual_mesh_on_card() else None)
     mesh = solver_mesh.SolverMesh(*shape, devices=devices)
     mesh.validate_grid(grid)
     return mesh
@@ -2624,17 +2640,42 @@ def warm(service: PlanService, grid: Grid, n_agents: int) -> int:
     return n
 
 
+def launch_counts() -> Dict[str, int]:
+    """This process's kernel launches so far, by kernel.  Launches on the
+    card only; on the CPU the plain versions run and the counts stay 0."""
+    return {"sweep_scan": sweep_kernel.launches,
+            **{f"field_fused_{mode}": n
+               for mode, n in sorted(field_fused.launches.items())}}
+
+
 def launch_gauges() -> None:
     """This process's kernel launch counts as gauges
     (``solverd.kernel_launches{kernel=...}``), so that they ride the
     metrics beacon: a harness outside the daemon reads from them which
-    kernels served its fleet.  Launches on the card only; on the CPU the
-    plain versions run and the counts stay 0."""
+    kernels served its fleet."""
     reg = registry.get_registry()
-    reg.gauge("solverd.kernel_launches", sweep_kernel.launches,
-              kernel="sweep_scan")
-    for mode, n in field_fused.launches.items():
-        reg.gauge("solverd.kernel_launches", n, kernel=f"field_fused_{mode}")
+    for kernel, n in launch_counts().items():
+        reg.gauge("solverd.kernel_launches", n, kernel=kernel)
+
+
+def report_launches_on_sigterm() -> None:
+    """On SIGTERM, print this process's kernel launches (in all, and since
+    this call: the ``solverd up`` banner) as one ``solverd kernel
+    launches`` JSON line, then die of the signal as before.  A harness
+    that stops the daemon reads from its log which kernels served the
+    fleet, the warm-up apart."""
+    at_up = launch_counts()
+
+    def report(signum, frame):
+        now = launch_counts()
+        print("🧮 solverd kernel launches " + json.dumps(
+            {"total": now,
+             "since_up": {k: n - at_up.get(k, 0) for k, n in now.items()}}),
+            flush=True)
+        signal.signal(signum, signal.SIG_DFL)
+        os.kill(os.getpid(), signum)
+
+    signal.signal(signal.SIGTERM, report)
 
 
 class LaunchBeacon(MetricsBeacon):
@@ -2823,6 +2864,7 @@ def main(argv=None) -> int:
              f"{', virtual' if mesh_obj.mesh.virtual else ''}]"
              if mesh_obj else "") + ")")
     sys.stdout.flush()
+    report_launches_on_sigterm()
 
     if multi_tenant:
         # the tenant-aware loop replaces the single-fleet one end to end

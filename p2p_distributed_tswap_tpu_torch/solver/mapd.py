@@ -27,6 +27,7 @@ with the state it returns.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -37,6 +38,8 @@ from p2p_distributed_tswap_tpu_torch import hostsync
 from p2p_distributed_tswap_tpu_torch.core.agent import AgentPhase, AgentState
 from p2p_distributed_tswap_tpu_torch.core.config import SolverConfig
 from p2p_distributed_tswap_tpu_torch.core.grid import Grid
+from p2p_distributed_tswap_tpu_torch.device import resolve_device
+from p2p_distributed_tswap_tpu_torch.obs import trace
 from p2p_distributed_tswap_tpu_torch.ops.distance import (
     PACKED_STAY,
     direction_fields,
@@ -80,17 +83,6 @@ class MapdState:
 
     def replace(self, **changes) -> "MapdState":
         return dataclasses.replace(self, **changes)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a solve runs on: ``cuda`` unless the caller names another.
-    Raises when CUDA is asked for (or defaulted to) and missing."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; the solve runs on the card unless the "
-            "caller passes device='cpu'")
-    return dev
 
 
 def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -240,20 +232,47 @@ def _replan(cfg: SolverConfig, s: MapdState,
     return s.replace(need_replan=need)
 
 
+def _prime_chunks(cfg: SolverConfig, s: MapdState, free: torch.Tensor,
+                  traced: bool) -> MapdState:
+    """The t=0 burst's loop of ``replan_chunk``-wide chunks, each chunk in
+    a ``mapd.prime_chunk`` span when ``traced``.  The tail chunk clips to
+    agent n-1 and recomputes its row."""
+    n, r = cfg.num_agents, min(cfg.replan_chunk, cfg.num_agents)
+    lane = torch.arange(r, dtype=_I32, device=s.pos.device)
+    for ci, o in enumerate(range(0, n, r)):
+        with (trace.span("mapd.prime_chunk", chunk=ci) if traced
+              else contextlib.nullcontext()):
+            sel = (o + lane).clamp(0, n - 1)
+            fields = direction_fields(free, s.goal[sel],
+                                      max_rounds=cfg.max_sweep_rounds)
+            s.dirs[s.slot[sel]] = pack_directions(
+                fields.reshape(r, cfg.num_cells))
+    return s.replace(need_replan=torch.zeros_like(s.need_replan))
+
+
 def prime_fields(cfg: SolverConfig, s: MapdState,
                  free: torch.Tensor) -> MapdState:
     """Compute the direction field of EVERY agent's current goal in
     ``replan_chunk``-wide chunks: the t=0 burst, one host-driven loop of
-    chunks.  The tail chunk clips to agent n-1 and recomputes its row."""
+    chunks."""
+    return _prime_chunks(cfg, s, free, traced=False)
+
+
+def host_prime_fields(cfg: SolverConfig, s: MapdState,
+                      free: torch.Tensor) -> MapdState:
+    """The t=0 field burst as a host-driven loop of per-chunk programs,
+    under the JAX package's name and trace spans.
+
+    The JAX package needs it beside its one fused ``prime_fields`` scan
+    at the largest grids, where one program over every chunk is unstable
+    on its accelerator; here ``prime_fields`` is already that loop, so
+    both compute the same rows.  This one records a
+    ``mapd.host_prime_fields`` span (``agents``, ``chunks``) around the
+    burst and a ``mapd.prime_chunk`` span (``chunk``) around each chunk,
+    so that a trace of either package reads the same."""
     n, r = cfg.num_agents, min(cfg.replan_chunk, cfg.num_agents)
-    lane = torch.arange(r, dtype=_I32, device=s.pos.device)
-    for o in range(0, n, r):
-        sel = (o + lane).clamp(0, n - 1)
-        fields = direction_fields(free, s.goal[sel],
-                                  max_rounds=cfg.max_sweep_rounds)
-        s.dirs[s.slot[sel]] = pack_directions(
-            fields.reshape(r, cfg.num_cells))
-    return s.replace(need_replan=torch.zeros_like(s.need_replan))
+    with trace.span("mapd.host_prime_fields", agents=n, chunks=-(-n // r)):
+        return _prime_chunks(cfg, s, free, traced=True)
 
 
 def _record(cfg: SolverConfig, s: MapdState) -> MapdState:
@@ -444,8 +463,10 @@ def solve_offline(grid: Grid, starts_idx: np.ndarray, tasks: np.ndarray,
     n = len(starts_idx)
     if len(tasks) == 0:
         return (np.zeros((0, n), np.int32), np.zeros((0, n), np.int8), 0)
-    final = run_mapd(cfg, starts_idx, tasks, grid.free, dev)
-    makespan = int(final.t)
+    with trace.span("mapd.solve_offline", agents=len(starts_idx),
+                    tasks=int(len(tasks))):
+        final = run_mapd(cfg, starts_idx, tasks, grid.free, dev)
+        makespan = int(final.t)  # the fetch that syncs the device
     if not cfg.record_paths:
         return (np.zeros((0, n), np.int32), np.zeros((0, n), np.int8),
                 makespan)

@@ -977,3 +977,43 @@ def test_plan_prioritized_on_cuda_matches_cpu(cuda):
     assert on_card[0].device.type == "cuda"
     assert torch.equal(on_card[0].cpu(), on_cpu[0])
     assert torch.equal(on_card[1].cpu(), on_cpu[1])
+
+
+def test_host_prime_fields_on_cuda_matches_prime_fields(cuda):
+    """The host-driven burst under the JAX package's name writes the same
+    packed rows as ``prime_fields`` on the card, through ``sweep_scan``,
+    a clipped tail chunk included (50 agents in chunks of 16)."""
+    grid = Grid.random_obstacles(48, 48, 0.1, seed=3)
+    n = 50
+    cfg = SolverConfig(height=48, width=48, num_agents=n, replan_chunk=16)
+    starts = start_positions_array(grid, n, seed=0)
+    tasks = TaskGenerator(grid, seed=1).generate_task_arrays(60)
+    s0, _ = mapd.prepare_state_unprimed(cfg, starts, tasks, cuda)
+    free = torch.as_tensor(grid.free, device=cuda)
+    plain = mapd.prime_fields(cfg, s0.replace(dirs=s0.dirs.clone()), free)
+    before = sweep_kernel.launches
+    hosted = mapd.host_prime_fields(cfg, s0.replace(dirs=s0.dirs.clone()),
+                                    free)
+    assert sweep_kernel.launches > before
+    assert torch.equal(hosted.dirs, plain.dirs)
+    assert torch.equal(hosted.need_replan, plain.need_replan)
+    assert not hosted.need_replan.any()
+
+
+def test_mesh_digest_gate_tick_on_virtual_shards_of_the_card(cuda,
+                                                             monkeypatch):
+    """The mesh smoke twin's digest gate on two virtual shards of
+    ``cuda:0``: byte-identical replies and equal audit digests beside the
+    flat runner on every tick, through ``sweep_scan``."""
+    import importlib.util
+    from pathlib import Path
+
+    monkeypatch.delenv("JG_SOLVER_MESH", raising=False)
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "torch_mesh_smoke.py"
+    spec = importlib.util.spec_from_file_location("torch_mesh_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    before = sweep_kernel.launches
+    ticks = smoke.digest_gate("cuda", log=lambda m: None)
+    assert len(ticks) == 6 and sweep_kernel.launches > before

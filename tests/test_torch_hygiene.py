@@ -9,7 +9,8 @@
   copies of the JAX package's: the same code, the package name rewritten;
   the port's ``RuntimeConfig`` is the JAX package's, field for field.
 - The port's ``Fleet`` launcher spawns the port's daemon.
-- The twins of the harnesses that drive the daemon (``scripts/torch_*.py``,
+- The twins of the harnesses that drive the daemon
+  (``scripts/torch_{audit_smoke,chaos_gate}.py``,
   ``analysis/torch_{fleetsim,tenant_scaling,solver_crossover}.py``) are
   copies of their originals but for the daemon's device: they spawn the
   port's daemon, on the card unless their ``--cpu`` asks for the CPU; they,
@@ -21,7 +22,11 @@
   ``scripts/torch_{field,sector}_fuzz.py``) are ports, not copies: they
   reach nothing of JAX, name no fixed ``/tmp`` path, write none of the
   JAX package's result files by default, and exit nonzero without CUDA
-  unless ``--cpu`` is given.
+  unless ``--cpu`` is given; so are the twins of the mesh scripts
+  (``scripts/torch_mesh_smoke.py``, ``analysis/torch_{mesh_bench,
+  sharded_steptime,extreme_rehearsal}.py``).
+- Every module of the JAX package has a counterpart at the same path in
+  the port (``ops/sweep_pallas.py`` is ``ops/sweep_kernel.py``).
 - The daemon serves the mesh (``--mesh`` / ``JG_SOLVER_MESH``, with or
   without tenants; virtual CPU shards under ``--cpu``) and the sector
   planner (``JG_SECTOR=1``), single- and multi-tenant; it refuses a
@@ -32,6 +37,7 @@
 
 import ast
 import dataclasses
+import json
 import os
 import pathlib
 import re
@@ -103,6 +109,9 @@ MODULES = {
     "p2p_distributed_tswap_tpu_torch.obs.slo",
     "p2p_distributed_tswap_tpu_torch.obs.fleet_aggregator",
     "p2p_distributed_tswap_tpu_torch.solver.oracle",
+    "p2p_distributed_tswap_tpu_torch.device",
+    "p2p_distributed_tswap_tpu_torch.metrics.task_metrics",
+    "p2p_distributed_tswap_tpu_torch.obs.health",
 }
 
 # Copied from the JAX package: the same code, with the package name
@@ -122,7 +131,24 @@ COPIES = (
     "runtime/ha.py",
     # the sequential oracle the parity twin holds the solver against
     "solver/oracle.py",
+    # the last modules: the task metrics and the fleet health plane
+    "metrics/__init__.py", "metrics/task_metrics.py", "obs/health.py",
 )
+
+
+# The port's counterpart of each module of the JAX package, where its path
+# differs: the Pallas sweep is bound as the CUDA sweep's wrapper.
+RENAMED = {"ops/sweep_pallas.py": "ops/sweep_kernel.py"}
+
+
+def test_every_jax_module_has_a_counterpart_in_the_port():
+    jax_pkg = REPO / "p2p_distributed_tswap_tpu"
+    port_pkg = REPO / "p2p_distributed_tswap_tpu_torch"
+    rels = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py"))
+    assert "ops/sweep_pallas.py" in rels and len(rels) > 40
+    missing = [rel for rel in rels
+               if not (port_pkg / RENAMED.get(rel, rel)).exists()]
+    assert missing == []
 
 
 def _python(code_or_args, **kw):
@@ -284,6 +310,9 @@ _COPY_RULES = (
     (r"PR \d+'s ", "the "),
     (r"\(ISSUE \d+,\n(\s*)", r"(\n\1"),
     (r"ISSUE \d+ satellite \(([^)]*)\): ", r"(\1): "),
+    (r'"""ISSUE \d+: ', '"""'),
+    (r" \(\+ ISSUE \d+\):", ":"),
+    (r"\(PR \d+ contract, ", "(the sharded bus's contract, "),
 )
 
 
@@ -375,6 +404,34 @@ def test_daemon_serves_the_mesh(args, env_extra):
         sd.wait(timeout=10)
         bus.terminate()
         bus.wait(timeout=10)
+    # stopped, the daemon printed its launches (none: the CPU runs the
+    # kernels' plain versions) and died of the signal
+    reader.join(timeout=10)
+    report = [x for x in lines if "solverd kernel launches" in x]
+    assert len(report) == 1 and sd.returncode == -15, lines[-3:]
+    counts = json.loads(report[0].split("launches ", 1)[1])
+    assert counts["since_up"]["sweep_scan"] == 0 == \
+        counts["total"]["sweep_scan"]
+
+
+def test_daemon_takes_a_virtual_mesh_of_the_card_when_asked(monkeypatch):
+    """``JG_SOLVER_MESH_VIRTUAL=1`` lays a mesh on the card over virtual
+    shards of ``cuda:0`` instead of asking for A*T cards; unset, a mesh on
+    the card takes real cards (and is refused where there are fewer)."""
+    from p2p_distributed_tswap_tpu_torch.runtime import solverd
+
+    grid = Grid.from_ascii("\n".join(["." * 8] * 8))
+    args = types.SimpleNamespace(tenants=None, multi_tenant=False,
+                                 solver_topic="solver", mesh="2", cpu=False)
+    monkeypatch.delenv("JG_SOLVER_MESH", raising=False)
+    monkeypatch.setenv(solverd.VIRTUAL_MESH_ENV, "1")
+    mesh = solverd.build_mesh(args, grid)
+    assert mesh.mesh.virtual and mesh.lead == torch.device("cuda", 0)
+    assert mesh.shape_str == "2x1"
+    if not torch.cuda.is_available():
+        assert "CUDA" in solverd.refusal(args)
+        monkeypatch.delenv(solverd.VIRTUAL_MESH_ENV)
+        assert "mesh needs 2 devices" in solverd.refusal(args)
 
 
 @pytest.mark.parametrize("args,says", [
@@ -542,6 +599,24 @@ def test_plan_service_refuses_missing_cuda(monkeypatch):
 # (``TMPDIR``) under names of the twin's own.
 _CPU_HELP = 'help="run solverd on the CPU (the default is the card)")'
 TWINS = {
+    "scripts/torch_chaos_gate.py": (
+        "scripts/chaos_gate.py",
+        ["JAX_PLATFORMS=cpu python scripts/chaos_gate.py \\",
+         "python scripts/chaos_gate.py --capture C --faults \\",
+         "--out results/replay_r13.json",
+         "from analysis import fleetsim",
+         'ap.add_argument("--log-dir", default="/tmp/jg_chaos_logs")'],
+        ["python scripts/torch_chaos_gate.py [--cpu] \\",
+         "python scripts/torch_chaos_gate.py --capture C --faults \\",
+         "--out results/torch_replay.json",
+         "import tempfile",
+         "from analysis import torch_fleetsim as fleetsim",
+         'ap.add_argument("--log-dir", default=os.path.join(',
+         'tempfile.gettempdir(), "torch_chaos_logs"))',
+         'ap.add_argument("--cpu", action="store_true",', _CPU_HELP,
+         "from analysis import torch_fleetsim",
+         'torch_fleetsim.SOLVERD_DEVICE_ARGS[:] = ["--cpu"] if args.cpu '
+         "else []"]),
     "scripts/torch_audit_smoke.py": (
         "scripts/audit_smoke.py",
         ["Usage:  JAX_PLATFORMS=cpu python scripts/audit_smoke.py",
@@ -728,9 +803,18 @@ MEASUREMENT_TWINS = (
 )
 
 
+# The twins of the mesh scripts: ports, not copies, like the measurement
+# twins; each runs virtual shards of the card (or of the CPU under --cpu).
+MESH_TWINS = (
+    "scripts/torch_mesh_smoke.py", "analysis/torch_mesh_bench.py",
+    "analysis/torch_sharded_steptime.py",
+    "analysis/torch_extreme_rehearsal.py",
+)
+
+
 @pytest.mark.parametrize("path", [*sorted(TWINS), "chip_smoke.py",
                                   "analysis/torch_live_fleet.py",
-                                  *MEASUREMENT_TWINS])
+                                  *MEASUREMENT_TWINS, *MESH_TWINS])
 def test_twins_and_chip_smoke_reach_no_jax(path):
     """No import of a twin, of ``chip_smoke.py`` or of the live-fleet
     reader, followed through every file of the repo it reaches (imports
@@ -766,7 +850,12 @@ def test_twin_spawns_the_port_daemon_with_cpu_only_when_asked(twin):
     consts = [n for n in ast.walk(tree)
               if isinstance(n, ast.Constant) and isinstance(n.value, str)]
     daemons = {n.value for n in consts if n.value.endswith(".solverd")}
-    assert daemons == {"p2p_distributed_tswap_tpu_torch.runtime.solverd"}
+    if twin == "scripts/torch_chaos_gate.py":
+        # it spawns the daemon through the fleetsim twin's replays
+        assert daemons == set()
+        assert "analysis.torch_fleetsim" in _imports(REPO / twin)
+    else:
+        assert daemons == {"p2p_distributed_tswap_tpu_torch.runtime.solverd"}
     cpu = [n for n in consts if n.value == "--cpu"]
     assert cpu
     for node in cpu:
@@ -787,7 +876,10 @@ def test_twin_spawns_the_port_daemon_with_cpu_only_when_asked(twin):
     (["analysis/torch_fleetsim.py", "--replay",
       "results/captures/ci_small.capture.json", "--replay-solver", "tpu"],
      "replay/solverd.log"),
-], ids=["audit_smoke", "tenant_scaling", "fleetsim"])
+    (["scripts/torch_chaos_gate.py", "--capture",
+      "results/captures/ci_small.capture.json", "--faults",
+      "solverd_sigkill"], "0_solverd_sigkill/solverd.log"),
+], ids=["audit_smoke", "tenant_scaling", "fleetsim", "chaos_gate"])
 def test_twin_without_cpu_runs_the_daemon_on_the_card(no_cuda, tmp_path,
                                                       argv, log):
     """Without ``--cpu`` a twin's daemon plans on the card: where there is
@@ -833,7 +925,7 @@ def _docstrings(tree) -> set:
             and isinstance(n.body[0].value, ast.Constant)}
 
 
-@pytest.mark.parametrize("twin", MEASUREMENT_TWINS)
+@pytest.mark.parametrize("twin", [*MEASUREMENT_TWINS, *MESH_TWINS])
 def test_measurement_twin_writes_no_original_result_by_default(twin):
     """No fixed ``/tmp`` path, and no string of the code (docstrings
     aside) names ``PARITY.md`` or a ``results/*_rNN.json`` artifact of the
@@ -851,7 +943,7 @@ def test_measurement_twin_writes_no_original_result_by_default(twin):
     assert not re.search(r"\bISSUE \d|\bPR \d", text)
 
 
-@pytest.mark.parametrize("twin", MEASUREMENT_TWINS)
+@pytest.mark.parametrize("twin", [*MEASUREMENT_TWINS, *MESH_TWINS])
 def test_measurement_twin_without_cuda_refuses_unless_cpu(no_cuda, twin):
     """Without CUDA a twin exits nonzero at once, naming CUDA and
     ``--cpu``, and writes nothing."""
