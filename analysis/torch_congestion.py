@@ -13,6 +13,8 @@ and emits ms/step AND makespan per (mode, seed) plus per-seed makespan
 ratios, as a markdown table (stdout) and a JSON artifact.  Each solve runs
 twice on the device: a warm run (the first CUDA launch builds and loads the
 port's kernels) and the timed run, ended by ``torch.cuda.synchronize()``.
+``run_one(..., warm=False)`` times the first solve alone, for a caller
+whose process has already solved the rung.
 
 Usage:  python analysis/torch_congestion.py [--seeds 5] [--cpu]
             [--out results/torch_congestion.json]
@@ -29,7 +31,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run_one(scn, seed, device="cuda"):
+def run_one(scn, seed, device="cuda", warm=True):
     import torch
 
     from p2p_distributed_tswap_tpu_torch.solver import mapd
@@ -40,8 +42,9 @@ def run_one(scn, seed, device="cuda"):
 
     grid, starts, tasks, cfg = scn.build(seed=seed)
     args = (cfg, starts, tasks, grid.free, device)
-    final = mapd.run_mapd(*args)   # warm: kernels built and loaded
-    sync()
+    if warm:
+        mapd.run_mapd(*args)   # kernels built and loaded
+        sync()
     t0 = time.perf_counter()
     final = mapd.run_mapd(*args)
     sync()

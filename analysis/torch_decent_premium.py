@@ -2,7 +2,9 @@
 
 The port's twin of ``analysis/decent_premium.py``.  Variants (each a FULL
 solve on the device, run twice: a warm run, then the timed run ended by
-``torch.cuda.synchronize()``):
+``torch.cuda.synchronize()``; ``run_variant(..., warm=False)`` times the
+first solve alone, for a caller whose process has loaded the kernels and
+solved the rung's paths already):
 
   cent          — the rung (global view)
   decent        — the rung's radius-15 fresh-mask variant
@@ -41,7 +43,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 VARIANTS = ("cent", "decent", "decent_nomask", "stale")
 
 
-def run_variant(rung: str, variant: str, device="cuda") -> dict:
+def run_variant(rung: str, variant: str, device="cuda",
+                warm: bool = True) -> dict:
     import torch
 
     from p2p_distributed_tswap_tpu_torch.models import scenarios
@@ -66,8 +69,9 @@ def run_variant(rung: str, variant: str, device="cuda") -> dict:
                 torch.ones_like(i_idx, dtype=torch.bool))
         grid, starts, tasks, cfg = scn.build(seed=0)
         args = (cfg, starts, tasks, grid.free, device)
-        final = mapd.run_mapd(*args)
-        sync()
+        if warm:
+            mapd.run_mapd(*args)
+            sync()
         sweeps0 = sweep_kernel.launches
         fused0 = dict(field_fused.launches)
         t0 = time.perf_counter()

@@ -258,6 +258,10 @@ def _read(solver: str, watch, out_json: Path, log_dir: Path,
     trace_dir = trace_dirs[0]
     w0 = watch.window_t0_us
     w1 = w0 + int(rung["window_s"] * 1e6)
+    dispatches = _dispatch_times_us(trace_dir)
+    row["first_dispatch_to_window_open_s"] = _seconds(
+        w0, min(dispatches, default=None))
+    row["dispatched_before_window"] = sum(t < w0 for t in dispatches)
     mgr = spans(trace_dir, "manager_centralized")
     m_first, m_last = _snapshots(watch, "manager_centralized")
     row["manager"] = {
@@ -314,9 +318,8 @@ def _tail(path: Path, n: int = 2000) -> str:
         return f"({e})"
 
 
-def _first_dispatch_us(trace_dir: Path):
-    """Wall-clock µs of the manager's first ``task.dispatch`` event, or
-    None."""
+def _dispatch_times_us(trace_dir: Path) -> list:
+    """Wall-clock µs of every ``task.dispatch`` event of the manager."""
     ts = []
     for f in Path(trace_dir).glob("manager*.events.jsonl"):
         for line in f.read_text(errors="replace").splitlines():
@@ -326,7 +329,12 @@ def _first_dispatch_us(trace_dir: Path):
                 continue
             if ev.get("event") == "task.dispatch" and "ts_ms" in ev:
                 ts.append(int(ev["ts_ms"]) * 1000)
-    return min(ts) if ts else None
+    return ts
+
+
+def _seconds(a, b):
+    """``a - b`` in seconds from µs, or None where either is missing."""
+    return None if a is None or b is None else round((a - b) / 1e6, 3)
 
 
 def diagnosis(log_dir: Path, row=None) -> dict:
@@ -348,19 +356,15 @@ def diagnosis(log_dir: Path, row=None) -> dict:
     ticks = []
     trace_dirs = sorted(log_dir.glob("*/trace"))
     if trace_dirs:
-        first = _first_dispatch_us(trace_dirs[0])
+        first = min(_dispatch_times_us(trace_dirs[0]), default=None)
         ticks = spans(trace_dirs[0], "solverd").get("solverd.tick", [])
         if ticks:
             last_tick = max(s + d for s, d in ticks)
-
-    def seconds(a, b):
-        return None if a is None or b is None else round((a - b) / 1e6, 3)
-
     return {"log_tails": tails,
-            "first_dispatch_to_window_open_s": seconds(w0, first),
+            "first_dispatch_to_window_open_s": _seconds(w0, first),
             "dispatched": row.get("dispatched"),
             "completed": row.get("completed"),
             "daemon_last_tick_end_after_window_open_s":
-                seconds(last_tick, w0),
+                _seconds(last_tick, w0),
             "daemon_ticks": len(ticks),
             "beacons": row.get("beacons")}

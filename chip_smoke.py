@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version, and drives the port's paths (the
 offline MAPD solve: default, stale-view decentralized, and the fused field
-engine under ``MAPD_FUSED``) on the card.  Each phase prints one JSON line;
-any failed phase raises and the script exits non-zero.  ``MAPD_FUSED`` is
+engine under ``MAPD_FUSED``) on the card.  Each phase prints one JSON line
+(a few print one per row), with ``"s"``: its seconds on the host clock so
+far; any failed phase raises and the script exits non-zero.  ``MAPD_FUSED`` is
 set and restored inside every phase that solves, so no phase leaks its mode
 into the next.  Phases:
 
@@ -186,11 +187,13 @@ into the next.  Phases:
                translation unit each, started after phase 2 and joined
                here); fails without g++.
 30. reserved_astar — ``ops/reserved_astar.py`` on the 3k-256 rung's 256²
-               warehouse, T = 512: ``plan_prioritized`` of 8 agents, then
-               8 more against the table their paths fill, on ``cuda`` and
-               ``cpu`` (paths and arrivals equal); ``reserved_astar`` at
-               B = 64 timed on the card (ms, peak memory, arrivals) and
-               ``plan_prioritized`` of 16 agents.
+               warehouse, T = 512, timed on the card: ``plan_prioritized``
+               of 8 agents, then 8 more against the table their paths
+               fill; ``reserved_astar`` at B = 64 (ms, peak memory,
+               arrivals) and ``plan_prioritized`` of 16 agents.
+30b. reserved_astar_parity — phase 30's first two plans on ``cpu`` from
+               the same inputs and table: paths and arrivals equal to the
+               card's.
 31. audit_live — ``scripts/torch_audit_smoke.py`` with the daemon on the
                card: the clean gate (no red divergence) and the drill
                (bisected to the injected lane 1's goal).
@@ -200,8 +203,10 @@ into the next.  Phases:
                fleet with ``--cpu``: the chaos twin's determinism verdict
                (the same completed task ids, equal audit ledger and view
                digests, both outcomes ok).
-33. fleetsim_1k_512 — the fleetsim twin, closed loop, 1000 sim agents on
-               its empty 512² map, 2 bus shards, 250 ms ticks, seed 1,
+33. fleetsim_1k_512 — the first live phase, alone (no process of another
+               fleet is up): the fleetsim twin, closed loop, 1000 sim
+               agents on its empty 512² map, 2 bus shards, 250 ms ticks,
+               seed 1,
                settle 45 s and window 30 s: with ``--solver tpu`` (the
                daemon on the card; its banner must name the card, a task
                must complete, the daemon must launch ``sweep_scan`` and
@@ -214,8 +219,10 @@ into the next.  Phases:
                that tick (the wire and the queueing), and the manager's
                planning tick; from the beacons of the window, ticks over
                budget, field sweeps and kernel launches per tick (all
-               read by ``analysis/torch_live_fleet.py``); the rated-load
-               SLO verdicts, recorded, not asserted.
+               read by ``analysis/torch_live_fleet.py``); the seconds
+               from the manager's first dispatch to the window's opening
+               and the dispatches before it; the rated-load SLO verdicts,
+               recorded, not asserted.
 34. tenants_live — ``analysis/torch_tenant_scaling.py`` at its smoke's
                size (2 tenants of 4 agents, 24²) with a 30 s window, the
                daemon on the card: both tenants admitted, each completes
@@ -240,8 +247,8 @@ into the next.  Phases:
                through ``JG_SOLVER_MESH_VIRTUAL=1``: both tasks done, the
                mesh banner on ``cuda:0``).
 34e. crossover_sweep — ``analysis/torch_crossover_sweep.py`` alone (it
-               measures latency) on its empty 256² map at 50, 2000 and
-               10000 agents: the native ``tswap_step`` curve
+               measures latency) on its empty 256² map at 50 and 10000
+               agents: the native ``tswap_step`` curve
                (``mapd_tswap_bench``) and the round trips of a plan
                request through the bus to a fresh daemon on the card
                (``--warm N``), the crossover as the twin computes it; the
@@ -263,9 +270,15 @@ into the next.  Phases:
                section passes with its native half (none skipped), the
                plan fuzz (packed resident path against stateless JSON) on
                the card, its ``sweep_scan`` launches counted.
-               Phases 34c, 34d and 34f-h run while 34b does (each fleet
-               its own bus pool, ports and logs); their lines print in
-               the order 34h, 34f, 34g, 34d, 34b, 34c, 34e.
+               Phase 34c runs while 34b does, and beside them three
+               waves, one after another (``WAVES``; each live twin its
+               own bus pool, ports and logs), each of live twins in the
+               background and verdicts in this process: 34g and 31 with
+               34h, 5, 6 and 17; 34f and 34 with 34d, 11, 15, 27 and 30b;
+               32 with 35, 39, 40 and 41.  So the lines print in the
+               order 1-4, 7-10, 12-14, 16, 18-26, 28-30, 33, 34h, 5, 6,
+               17, 31, 34g, 34d, 11, 15, 27, 30b, 34f, 34, 35, 39-41,
+               32, 34b, 34c, 34e, 36-38, 42-43.
 35. parity_table — ``analysis/torch_parity_table.py``'s ``run_pair`` for
                the rows ``empty 14x14 6a`` and ``ref-envelope 50a 100x100
                empty`` at its ``--quick`` seed counts (3 each), on
@@ -273,13 +286,16 @@ into the next.  Phases:
                makespan, oracle completed); each row's ratios printed
                beside the JAX package's ``PARITY.md`` row (not checked).
 36. congestion — ``analysis/torch_congestion.py``'s ``run_one`` on the
-               3k-256 rung at seed 0 in its three modes (a warm solve,
-               then the timed one): each completes, the stale mode's
-               makespan equals phase 8's default run; ms/step, makespan.
-37. decent_premium — ``analysis/torch_decent_premium.py --rung medium``:
-               the four variants, each a subprocess on the card; each
-               completes and launches ``sweep_scan``, ``cent``'s makespan
-               equals phase 7's; ms/step per variant.
+               3k-256 rung at seed 0 in its three modes, one timed solve
+               each (no warm solve: phase 8 solved the rung in this
+               process): each completes, the stale mode's makespan equals
+               phase 8's default run; ms/step, makespan.
+37. decent_premium — ``analysis/torch_decent_premium.py``'s
+               ``run_variant`` for the four variants of ``--rung medium``,
+               in this process on the card with one timed solve each (the
+               twin's CLI runs a child per variant, warm solve first);
+               each completes and launches ``sweep_scan``, ``cent``'s
+               makespan equals phase 7's; ms/step per variant.
 38. roofline — ``analysis/torch_roofline.py`` at ``--chunks 2``: the
                flagship's sampled chunks' fixpoint rounds by
                ``sweep_scan`` equal those by ``sweep_plain`` on the card;
@@ -303,6 +319,10 @@ into the next.  Phases:
 43. sector_bench — ``analysis/torch_sector_bench.py``'s fresh-goal and ε
                sections at 512², S = 64, with the 1024² full-sweep
                baseline measured on the card: ε within 0.05.
+43b. phase_seconds — every phase's seconds on the host clock (a phase
+               started in the background from its start to its reap),
+               which ran in the background, and ``total``: the seconds
+               since the process started.
 44. kernels — one JSON object describing every kernel of the paths, with
                its launches per mesh step (phase 25), per mesh tick
                (phase 28, 2 x 2), per live tick (phase 33), in each of
@@ -321,9 +341,9 @@ stopped, in all and since its banner.
 
 runs only phases 1, 2 and 29 and then phase 33's measurement at each size
 (``--solver tpu``, then ``native``; settle 45 s, window 30 s, as
-fleetsim's defaults), and ends with the same last line: the check of the
-JAX package's ``results/fleetsim_r09.json`` (96² map, 500 and 1000
-agents) is ``--fleet-rungs 96:500,96:1000``.
+fleetsim's defaults), then phase 43b, and ends with the same last line:
+the check of the JAX package's ``results/fleetsim_r09.json`` (96² map,
+500 and 1000 agents) is ``--fleet-rungs 96:500,96:1000``.
 
 Mesh phases (22-28) run their shards on real cards when
 ``torch.cuda.device_count()`` is at least the shard count, else on a
@@ -414,7 +434,9 @@ INF = sweep_kernel.INF
 DIRECTIONS = ((1, False), (1, True), (2, False), (2, True))
 TIMED_LAUNCHES = 25
 PLAIN_TIMED = 5
-SLEEP_CYCLES = 200_000_000  # ~0.1 s of device time to queue launches behind
+# ~0.01 s of device time to queue launches behind: ten times the host's
+# enqueue of TIMED_LAUNCHES launches, which it must outlast
+SLEEP_CYCLES = 20_000_000
 FLAGSHIP_WARMUP = 5
 FLAGSHIP_WINDOW = 50
 SERVE_PARITY_TICKS = 100
@@ -457,8 +479,66 @@ LAYER_COUNTERS = (
     "solverd.sector_reentries", "solverd.sector_rebuilds")
 
 
+class PhaseClock:
+    """The host-clock seconds of every phase.  ``main`` runs each phase's
+    call inside :meth:`timed`; a phase started in the background is timed
+    from its start (``since``) to its reap.  While a phase is timed,
+    :func:`emit` adds ``"s"`` (its seconds so far) to the lines it prints,
+    and the first of those names its entry in :attr:`seconds`."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self.background: list = []
+        self._t0 = None
+        self._name = None
+
+    @contextlib.contextmanager
+    def timed(self, since: float | None = None):
+        self._t0 = time.perf_counter() if since is None else since
+        self._name = None
+        try:
+            yield
+        finally:
+            if self._name is not None:
+                self.seconds[self._name] = self.elapsed()
+                if since is not None:
+                    self.background.append(self._name)
+            self._t0 = None
+
+    def elapsed(self) -> float:
+        return round(time.perf_counter() - self._t0, 3)
+
+    def stamp(self, phase: str, fields: dict) -> None:
+        if self._t0 is not None:
+            self._name = self._name or phase
+            fields["s"] = self.elapsed()
+
+
+CLOCK = PhaseClock()
+
+
+def process_seconds() -> float:
+    """Wall seconds since this process started (Linux ``/proc``): the
+    interpreter's start and the imports included, as a host clock around
+    the command counts them."""
+    stat = Path("/proc/self/stat").read_text().rsplit(")", 1)[1].split()
+    start = int(stat[19]) / os.sysconf("SC_CLK_TCK")  # field 22, starttime
+    return float(Path("/proc/uptime").read_text().split()[0]) - start
+
+
 def emit(phase: str, **fields) -> None:
+    CLOCK.stamp(phase, fields)
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def emit_phase_seconds() -> dict:
+    """The ``phase_seconds`` line: every timed phase by its seconds in the
+    order they ended, which of them ran in the background (their seconds
+    overlap the others'), and the process's seconds so far."""
+    out = {"seconds": CLOCK.seconds, "background": CLOCK.background,
+           "total": round(process_seconds(), 3)}
+    print(json.dumps({"phase": "phase_seconds", **out}), flush=True)
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -759,7 +839,7 @@ FUSED_CASES = (
     *(("multi", 4, 256, 256, "congested", 128, True, {"cluster": k})
       for k in (1, 2, 4, 8, 16)),
 )
-PLAIN_FUSED_TIMED = 3
+PLAIN_FUSED_TIMED = 1
 # The in-step replan chunk of each kernel's path: the shape whose times the
 # kernels line reports (every timed shape is in its "timed" list).
 STEP_SHAPES = {"sweep_scan": [4, 1024, 1024], "multi": [4, 256, 256],
@@ -2639,11 +2719,12 @@ def phase_fleet_build(build: tuple) -> dict:
 
 
 def phase_reserved_astar(dev: torch.device) -> dict:
-    """Reserved space-time A* on the 3k-256 rung's 256² warehouse, T = 512:
-    8 agents planned in priority order, and 8 more against the table their
-    paths fill, on ``cuda`` and ``cpu`` (paths and arrivals equal); then
-    ``reserved_astar`` timed on the card at B = 64 and ``plan_prioritized``
-    of 16 agents."""
+    """Reserved space-time A* on the 3k-256 rung's 256² warehouse, T = 512,
+    on the card and timed: 8 agents planned in priority order, and 8 more
+    against the table their paths fill; then ``reserved_astar`` at B = 64
+    and ``plan_prioritized`` of 16 agents.  Returns the inputs, the card's
+    answers and the table on the host, which
+    :func:`phase_reserved_astar_parity` holds to the CPU's."""
     ra = importlib.import_module(
         "p2p_distributed_tswap_tpu_torch.ops.reserved_astar")
     grid, _, _, _ = scenarios.CONGESTED.build(seed=0)
@@ -2663,22 +2744,15 @@ def phase_reserved_astar(dev: torch.device) -> dict:
         torch.cuda.synchronize()
         return res, (time.perf_counter() - t0) * 1000.0
 
-    cpu = torch.device("cpu")
     s8, g8 = pick(8), pick(8)
     (paths, arr), prio8_ms = timed(
         lambda: ra.plan_prioritized(free, s8, g8, horizon, device=dev))
-    paths_h, arr_h = ra.plan_prioritized(free, s8, g8, horizon, device=cpu)
-    check(torch.equal(paths.cpu(), paths_h) and torch.equal(arr.cpu(), arr_h),
-          "reserved_astar: plan_prioritized differs on cuda and cpu")
     node, edge = ra.empty_reservations(horizon, h * w, device=dev)
     for p, a in zip(paths, arr):
         node, edge = ra.reserve_path(node, edge, p, a, w)
     qs, qg = pick(8), pick(8)
     (pq, aq), b8_ms = timed(lambda: ra.reserved_astar(free, qs, qg, node,
                                                       edge))
-    pq_h, aq_h = ra.reserved_astar(free, qs, qg, node.cpu(), edge.cpu())
-    check(torch.equal(pq.cpu(), pq_h) and torch.equal(aq.cpu(), aq_h),
-          "reserved_astar: B = 8 against the table differs on cuda and cpu")
     check(bool((aq >= 0).any()), "reserved_astar: no agent arrived")
     s64, g64 = pick(64), pick(64)
     e_node, e_edge = ra.empty_reservations(horizon, h * w, device=dev)
@@ -2697,11 +2771,9 @@ def phase_reserved_astar(dev: torch.device) -> dict:
     out = {
         "grid": f"{scenarios.CONGESTED.name} ({h}x{w})", "horizon": horizon,
         "prioritized_8": {"ms": round(prio8_ms, 3),
-                          "arrived": int((arr >= 0).sum()),
-                          "cuda_equals_cpu": True},
+                          "arrived": int((arr >= 0).sum())},
         "b8_against_table": {"ms": round(b8_ms, 3),
-                             "arrived": int((aq >= 0).sum()),
-                             "cuda_equals_cpu": True},
+                             "arrived": int((aq >= 0).sum())},
         "b64": {"ms_runs": b64_ms, "ms": statistics.median(b64_ms),
                 "peak_bytes": int(peak), "arrived": int((a64 >= 0).sum()),
                 "arrival_max": int(a64.max())},
@@ -2709,8 +2781,37 @@ def phase_reserved_astar(dev: torch.device) -> dict:
                            "arrived": int((a16 >= 0).sum())},
     }
     emit("reserved_astar", **out)
+    held = {"free": free, "horizon": horizon, "s8": s8, "g8": g8,
+            "paths": paths.cpu(), "arr": arr.cpu(), "qs": qs, "qg": qg,
+            "pq": pq.cpu(), "aq": aq.cpu(), "node": node.cpu(),
+            "edge": edge.cpu()}
     del node, edge, e_node, e_edge, p64
     torch.cuda.empty_cache()
+    return held
+
+
+def phase_reserved_astar_parity(held: dict) -> dict:
+    """The card's answers of :func:`phase_reserved_astar` against the
+    CPU's on the same inputs: ``plan_prioritized`` of 8 agents, and B = 8
+    against the table their paths fill (paths and arrivals equal)."""
+    ra = importlib.import_module(
+        "p2p_distributed_tswap_tpu_torch.ops.reserved_astar")
+    cpu = torch.device("cpu")
+    with one_thread():
+        paths, arr = ra.plan_prioritized(held["free"], held["s8"],
+                                         held["g8"], held["horizon"],
+                                         device=cpu)
+        pq, aq = ra.reserved_astar(held["free"], held["qs"], held["qg"],
+                                   held["node"], held["edge"])
+    out = {"prioritized_8": {"cuda_equals_cpu": torch.equal(
+               held["paths"], paths) and torch.equal(held["arr"], arr)},
+           "b8_against_table": {"cuda_equals_cpu": torch.equal(
+               held["pq"], pq) and torch.equal(held["aq"], aq)}}
+    emit("reserved_astar_parity", **out)
+    check(out["prioritized_8"]["cuda_equals_cpu"],
+          "reserved_astar: plan_prioritized differs on cuda and cpu")
+    check(out["b8_against_table"]["cuda_equals_cpu"],
+          "reserved_astar: B = 8 against the table differs on cuda and cpu")
     return out
 
 
@@ -2737,11 +2838,14 @@ def _card_banner(log: Path) -> str:
 
 
 def _spawn(cmd: list) -> subprocess.Popen:
-    """A live twin started in the background (see :func:`_reap`)."""
+    """A live twin started in the background (see :func:`_reap`).  Its
+    output goes to temporary files, not pipes: a twin may run for minutes
+    before it is reaped, and a full pipe would stop it."""
+    outputs = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
     proc = subprocess.Popen([sys.executable, *map(str, cmd)], cwd=REPO,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+                            stdout=outputs[0], stderr=outputs[1], text=True)
     proc.started = time.perf_counter()
+    proc.outputs = outputs
     return proc
 
 
@@ -2750,10 +2854,13 @@ def _reap(proc: subprocess.Popen, what: str) -> subprocess.CompletedProcess:
     its start, then killed); raises unless it exited 0."""
     left = LIVE_TIMEOUT_S - (time.perf_counter() - proc.started)
     try:
-        out, err = proc.communicate(timeout=max(1.0, left))
+        proc.wait(timeout=max(1.0, left))
     except subprocess.TimeoutExpired:
         proc.kill()
-        out, err = proc.communicate()
+        proc.wait()
+    out, err = [f.seek(0) or f.read() for f in proc.outputs]
+    for f in proc.outputs:
+        f.close()
     check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n"
           f"{out[-3000:]}\n{err[-3000:]}")
     return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
@@ -2763,14 +2870,20 @@ def _live(cmd: list, what: str) -> subprocess.CompletedProcess:
     return _reap(_spawn(cmd), what)
 
 
-def phase_audit_live() -> dict:
+def start_audit_live() -> subprocess.Popen:
+    """``scripts/torch_audit_smoke.py`` started in the background;
+    :func:`phase_audit_live` reaps it."""
+    d = LIVE_DIR / "audit"
+    return _spawn(["scripts/torch_audit_smoke.py", "--log-dir", d,
+                   "--out", d / "audit.json"])
+
+
+def phase_audit_live(proc: subprocess.Popen) -> dict:
     """The audit smoke twin on the card: the clean gate (no red
     divergence, digests joined) and the corruption drill (bisected to the
     injected lane and field)."""
     d = LIVE_DIR / "audit"
-    t0 = time.perf_counter()
-    proc = _live(["scripts/torch_audit_smoke.py", "--log-dir", d,
-                  "--out", d / "audit.json"], "audit_live")
+    res = _reap(proc, "audit_live")
     doc = json.loads((d / "audit.json").read_text())
     finding = doc["drill"]["finding"]
     check(finding["lane"] == 1 and finding["field"] == "goal",
@@ -2779,13 +2892,26 @@ def phase_audit_live() -> dict:
     out = {"banner": _card_banner(d / "solverd.log"), "clean": doc["clean"],
            "detect_s": doc["drill"]["detect_s"],
            "drill_requests": doc["drill"]["requests"],
-           "notes": [x for x in proc.stdout.splitlines() if "note" in x],
-           "seconds": round(time.perf_counter() - t0, 1)}
+           "notes": [x for x in res.stdout.splitlines() if "note" in x],
+           "concurrent_with": _beside("audit_live"),
+           "seconds": round(time.perf_counter() - proc.started, 1)}
     emit("audit_live", **out)
     return out
 
 
-def phase_replay_live() -> dict:
+def start_replay_live() -> dict:
+    """The two replays of :func:`phase_replay_live` started in the
+    background, the daemon on the card in one fleet and on the CPU in the
+    other."""
+    return {label: _spawn(
+        ["analysis/torch_fleetsim.py", "--replay", CHAOS_CAPTURE,
+         "--replay-solver", "tpu", *extra,
+         "--log-dir", LIVE_DIR / f"replay_{label}",
+         "--out", LIVE_DIR / f"replay_{label}" / "replay.json"])
+        for label, extra in (("cuda", []), ("cpu", ["--cpu"]))}
+
+
+def phase_replay_live(procs: dict) -> dict:
     """``results/captures/ci_small.capture.json`` replayed with
     ``--replay-solver tpu`` through the fleetsim twin, the daemon on the
     card and, in a second fleet at the same time, on the CPU; the chaos
@@ -2793,13 +2919,6 @@ def phase_replay_live() -> dict:
     (``scripts/torch_chaos_gate.determinism_verdict``)."""
     from scripts import torch_chaos_gate
 
-    t0 = time.perf_counter()
-    procs = {label: _spawn(
-        ["analysis/torch_fleetsim.py", "--replay",
-         "results/captures/ci_small.capture.json", "--replay-solver", "tpu",
-         *extra, "--log-dir", LIVE_DIR / f"replay_{label}",
-         "--out", LIVE_DIR / f"replay_{label}" / "replay.json"])
-        for label, extra in (("cuda", []), ("cpu", ["--cpu"]))}
     runs = {}
     for label, proc in procs.items():
         _reap(proc, f"replay_live {label}")
@@ -2813,9 +2932,10 @@ def phase_replay_live() -> dict:
     check(verdict["ok"], f"replay_live: determinism verdict {verdict}")
     check("device=cpu [cpu]" in runs["cpu"]["banner"],
           "replay_live: the second run's daemon is not on the CPU")
-    out = {"capture": "results/captures/ci_small.capture.json",
+    out = {"capture": CHAOS_CAPTURE,
            "verdict": verdict, "concurrent": True,
-           "seconds": round(time.perf_counter() - t0, 1),
+           "concurrent_with": _beside("replay_live"),
+           "seconds": round(time.perf_counter() - procs["cuda"].started, 1),
            **{label: {"banner": r["banner"],
                       "completed": r["result"]["completed"],
                       "expected": r["result"]["expected"],
@@ -2880,19 +3000,31 @@ def phase_fleetsim_live() -> dict:
 def fleet_rungs_only(spec: str) -> int:
     """``--fleet-rungs SIDE:AGENTS[,...]``: phase 33's measurement at each
     size, with fleetsim's own settle and window."""
-    phase_device()
-    phase_build()
-    phase_fleet_build(start_fleet_build())
+    with CLOCK.timed():
+        phase_device()
+    with CLOCK.timed():
+        phase_build()
+    with CLOCK.timed():
+        phase_fleet_build(start_fleet_build())
     for rung in spec.split(","):
         side, agents = rung.split(":")
-        fleet_rung(f"fleetsim_{agents}_{side}", [
-            "--agents", agents, "--side", side, "--shards", "2",
-            "--tick-ms", "250", "--seed", "1", "--settle", "45",
-            "--window", "30"])
+        with CLOCK.timed():
+            fleet_rung(f"fleetsim_{agents}_{side}", [
+                "--agents", agents, "--side", side, "--shards", "2",
+                "--tick-ms", "250", "--seed", "1", "--settle", "45",
+                "--window", "30"])
+    emit_phase_seconds()
     return 0
 
 
-def phase_tenants_live() -> dict:
+def start_tenants_live() -> subprocess.Popen:
+    """``analysis/torch_tenant_scaling.py`` started in the background;
+    :func:`phase_tenants_live` reaps it."""
+    return _spawn(["analysis/torch_tenant_scaling.py", *TENANT_ARGS,
+                   "--log-dir", LIVE_DIR / "tenants"])
+
+
+def phase_tenants_live(proc: subprocess.Popen) -> dict:
     """The tenant-scaling twin at its smoke's size on the card: two
     namespaced fleets of 4 agents on 24² behind one multi-tenant daemon,
     judged by the smoke's checks (both tenants served, each completes a
@@ -2900,17 +3032,15 @@ def phase_tenants_live() -> dict:
     window is 30 s, not the smoke's 10: a 4-agent tenant completes 0 to 3
     tasks in 10 s, so "completes a task" there is a matter of luck."""
     d = LIVE_DIR / "tenants"
-    t0 = time.perf_counter()
-    proc = _live(["analysis/torch_tenant_scaling.py", *TENANT_ARGS,
-                  "--log-dir", d], "tenants_live")
-    variant = tenant_verdict(proc.stdout)
+    variant = tenant_verdict(_reap(proc, "tenants_live").stdout)
     out = {"args": TENANT_ARGS,
            "banner": _card_banner(d / "tenants2" / "solverd.log"),
            "solverd": variant["solverd"],
            "per_tenant": {ns: {k: r.get(k) for k in (
                "tasks_completed", "tasks_per_s", "completion_ratio")}
                for ns, r in variant["per_tenant"].items()},
-           "seconds": round(time.perf_counter() - t0, 1)}
+           "concurrent_with": _beside("tenants_live"),
+           "seconds": round(time.perf_counter() - proc.started, 1)}
     emit("tenants_live", **out)
     return out
 
@@ -2953,16 +3083,30 @@ def daemon_launches(log_dir: Path) -> dict:
 
 CHAOS_CAPTURE = "results/captures/ci_small.capture.json"
 MESH_BENCH_TICKS = 12
-# the phases that run at the same time, each its own fleet (bus pool,
-# ports, logs): chaos_live and the replays it drives are bound by the
-# capture's wall clock, not by the card or the host
-TOGETHER = ("chaos_live", "mesh_bench", "tpu_fleet_run", "federation_live",
-            "codec_fuzz", "mesh_smoke")
+# the phases that run at the same time, each live one its own fleet (bus
+# pool, ports, logs): chaos_live and mesh_bench from start to end, and
+# beside them three waves, one after another, each of live twins in the
+# background and of phases in this process.  chaos_live and the replays
+# it drives are bound by the capture's wall clock, not by the card or the
+# host; no phase of a wave measures a latency or a rate that a claim rests
+# on.  The federation smoke's wave is the lightest: its audit joiner
+# flagged a roster divergence once with the 50-agent tpu fleet run and the
+# mesh smoke beside it.
+THROUGHOUT = ("chaos_live", "mesh_bench")
+WAVES = (("federation_live", "audit_live", "codec_fuzz", "parity",
+          "stale_parity", "checkpoint"),
+         ("tpu_fleet_run", "tenants_live", "mesh_smoke", "serve_parity",
+          "serve_tenants_parity", "serve_mesh_parity",
+          "reserved_astar_parity"),
+         ("replay_live", "parity_table", "quality_gap", "field_fuzz",
+          "sector_fuzz"))
 
 
 def _beside(phase: str) -> list:
-    """The phases of ``TOGETHER`` that run while ``phase`` does."""
-    return [p for p in TOGETHER if p != phase]
+    """The phases that run while ``phase`` does: those of ``THROUGHOUT``
+    and of its wave, or of every wave for a phase of ``THROUGHOUT``."""
+    wave = next((w for w in WAVES if phase in w), sum(WAVES, ()))
+    return [p for p in (*THROUGHOUT, *wave) if p != phase]
 
 
 def start_chaos_live() -> subprocess.Popen:
@@ -3088,10 +3232,11 @@ def phase_mesh_bench(proc: subprocess.Popen) -> dict:
     return out
 
 
-# the crossover sweep's agent counts on its empty 256² map: its ends and
-# its middle of the original's default 50,500,2000,5000,10000 (each count
-# is a fresh daemon and a native run, one after the other)
-CROSSOVER_COUNTS = "50,2000,10000"
+# the crossover sweep's agent counts on its empty 256² map: the two ends
+# of the original's default 50,500,2000,5000,10000 (each count is a fresh
+# daemon and a native run, one after the other; the middle count, about
+# 20 s, went to keep the script well inside its time limit)
+CROSSOVER_COUNTS = "50,10000"
 # the tpu fleet run's 50 C++ agents at a 100 ms planning tick (the
 # original's 500 ms and 300 s: a task there takes over a minute) for 30 s
 TPU_FLEET_ARGS = ["--agents", "50", "--planning-interval-ms", "100",
@@ -3296,17 +3441,20 @@ def phase_parity_table(dev: torch.device) -> dict:
 
 def phase_congestion(dev: torch.device, congested: dict) -> dict:
     """``analysis/torch_congestion.py``'s ``run_one`` for its three modes
-    at seed 0 on the card (a warm solve, then the timed one)."""
+    at seed 0 on the card, one timed solve each and no warm solve: this
+    process has built and loaded the kernels and solved the rung in phase
+    8 already."""
     from analysis import torch_congestion
 
-    out: dict = {"modes": {}}
+    out: dict = {"modes": {}, "warm": False}
     modes = {"centralized": scenarios.CONGESTED,
              "decent-fresh": scenarios.CONGESTED_DECENT,
              "decent-stale": scenarios.CONGESTED_DECENT_STALE}
     with fused_env(""), counted(out):
         for name, scn in modes.items():
-            out["modes"][name] = {"mode": scn.mode,
-                                  **torch_congestion.run_one(scn, 0, dev)}
+            out["modes"][name] = {
+                "mode": scn.mode,
+                **torch_congestion.run_one(scn, 0, dev, warm=False)}
     emit("congestion", **out)
     for name, r in out["modes"].items():
         check(r["completed"], f"congestion {name}: not completed")
@@ -3318,15 +3466,18 @@ def phase_congestion(dev: torch.device, congested: dict) -> dict:
     return out
 
 
-def phase_decent_premium(medium: dict) -> dict:
-    """``analysis/torch_decent_premium.py --rung medium``: the four
-    variants, each in a subprocess on the card, launches from each child's
-    timed solve."""
+def phase_decent_premium(dev: torch.device, medium: dict) -> dict:
+    """``analysis/torch_decent_premium.py``'s ``run_variant`` for the four
+    variants of the medium rung on the card, in this process (the kernels
+    loaded, the rung's paths solved by earlier phases), one timed solve
+    each; the twin's own CLI runs each in a child with a warm solve
+    first."""
     from analysis import torch_decent_premium
 
-    out: dict = {}
+    out: dict = {"warm": False, "in_process": True}
     with fused_env(""), counted(out):
-        rows = torch_decent_premium.run_variants("medium", cpu=False)
+        rows = [torch_decent_premium.run_variant("medium", v, dev, warm=False)
+                for v in torch_decent_premium.VARIANTS]
     out["rows"] = rows
     emit("decent_premium", **out)
     check([r["variant"] for r in rows]
@@ -3538,81 +3689,141 @@ def main(argv=None) -> int:
         print_device_line()
         return 0
     dev = torch.device("cuda")
-    info = phase_device()
+    timed = CLOCK.timed
+    with timed():
+        info = phase_device()
     card = info["nvidia_smi"]
-    phase_build()
+    with timed():
+        phase_build()
     fleet_build = start_fleet_build()  # g++ while the card works
-    rows = phase_kernel(dev, card)
-    fused = phase_fused(dev, card)
-    ref_makespan = phase_parity(dev)
-    phase_stale_parity(dev)
-    medium = phase_medium(dev)
-    host_prime = phase_host_prime(dev)
-    congested = phase_congested(dev)
-    flag = phase_flagship(dev)
-    single = phase_flagship_single(dev, flag)
+    with timed():
+        rows = phase_kernel(dev, card)
+    with timed():
+        fused = phase_fused(dev, card)
+    with timed():
+        medium = phase_medium(dev)
+    with timed():
+        host_prime = phase_host_prime(dev)
+    with timed():
+        congested = phase_congested(dev)
+    with timed():
+        flag = phase_flagship(dev)
+    with timed():
+        single = phase_flagship_single(dev, flag)
     torch.cuda.empty_cache()
-    phase_serve_parity(dev)
     kept: dict = {}
-    serve_medium = phase_serve_medium(dev, kept)
-    serve_congested = phase_serve_congested(dev)
-    serve_flag = phase_serve_flagship(dev)
-    phase_serve_tenants_parity(dev)
-    tenants = phase_serve_tenants(dev)
-    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmpdir:
-        phase_checkpoint(dev, tmpdir)
+    with timed():
+        serve_medium = phase_serve_medium(dev, kept)
+    with timed():
+        serve_congested = phase_serve_congested(dev)
+    with timed():
+        serve_flag = phase_serve_flagship(dev)
+    with timed():
+        tenants = phase_serve_tenants(dev)
     torch.cuda.empty_cache()
-    repair = phase_repair(dev, card)
-    sect = phase_sector(
-        dev, card, repair["full_recompute"]["sweeps_chunk1_ms_per_field"])
+    with timed():
+        repair = phase_repair(dev, card)
+    with timed():
+        sect = phase_sector(
+            dev, card, repair["full_recompute"]["sweeps_chunk1_ms_per_field"])
     torch.cuda.empty_cache()
-    phase_serve_dynamic(dev)
-    phase_serve_sector(dev, serve_medium["unset"])
+    with timed():
+        phase_serve_dynamic(dev)
+    with timed():
+        phase_serve_sector(dev, serve_medium["unset"])
     # the multi-device layers: real cards where there are enough, else
     # virtual shards of cuda:0
-    extreme = phase_extreme_lite(dev)
-    phase_tiled(dev)
-    phase_sharded_medium(dev, medium)
-    mesh_flag = phase_sharded_flagship(dev, flag)
+    with timed():
+        extreme = phase_extreme_lite(dev)
+    with timed():
+        phase_tiled(dev)
+    with timed():
+        phase_sharded_medium(dev, medium)
+    with timed():
+        mesh_flag = phase_sharded_flagship(dev, flag)
     flag.pop("trail")
-    phase_sharded2d(dev, extreme)
+    with timed():
+        phase_sharded2d(dev, extreme)
     extreme.pop("trail")
-    phase_serve_mesh_parity(dev)
-    mesh_serve = phase_serve_mesh_medium(dev, kept.pop("datas"))
-    steptime = phase_sharded_steptime(dev)
-    rehearsal = phase_extreme_rehearsal(dev)
+    with timed():
+        mesh_serve = phase_serve_mesh_medium(dev, kept.pop("datas"))
+    with timed():
+        steptime = phase_sharded_steptime(dev)
+    with timed():
+        rehearsal = phase_extreme_rehearsal(dev)
     # the live fleet: the daemon is a second process on the card
     torch.cuda.empty_cache()
-    phase_fleet_build(fleet_build)
-    phase_reserved_astar(dev)
-    phase_audit_live()
-    phase_replay_live()
-    live = phase_fleetsim_live()
-    phase_tenants_live()
-    # the chaos gate, and beside it the mesh bench, the tpu fleet run and
-    # the federation smoke in the background and the codec fuzz and the
-    # mesh smoke here
+    with timed():
+        phase_fleet_build(fleet_build)
+    with timed():
+        astar = phase_reserved_astar(dev)
+    # alone, and the first live phase: it measures the fleet's rate and
+    # round trips, and no process of another fleet may share the host
+    with timed():
+        live = phase_fleetsim_live()
+    # the chaos gate and the mesh bench in the background, and beside them
+    # three waves of verdict phases (WAVES): live twins in the background,
+    # and phases in this process
     bench, chaos_proc = start_mesh_bench(), start_chaos_live()
-    fleet_run, federation = start_tpu_fleet_run(), start_federation_live()
-    codec = phase_codec_fuzz()
-    tpu_fleet = phase_tpu_fleet_run(fleet_run)
-    fed = phase_federation_live(federation)
-    mesh_smoke = phase_mesh_smoke()
-    chaos = phase_chaos_live(chaos_proc)
-    mesh_bench = phase_mesh_bench(bench)
+    federation, audit = start_federation_live(), start_audit_live()
+    with timed():
+        codec = phase_codec_fuzz()
+    with timed():
+        ref_makespan = phase_parity(dev)
+    with timed():
+        phase_stale_parity(dev)
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmpdir, timed():
+        phase_checkpoint(dev, tmpdir)
+    with timed(since=audit.started):
+        phase_audit_live(audit)
+    with timed(since=federation.started):
+        fed = phase_federation_live(federation)
+    fleet_run, tenants_live = start_tpu_fleet_run(), start_tenants_live()
+    with timed():
+        mesh_smoke = phase_mesh_smoke()
+    with timed():
+        phase_serve_parity(dev)
+    with timed():
+        phase_serve_tenants_parity(dev)
+    with timed():
+        phase_serve_mesh_parity(dev)
+    with timed():
+        phase_reserved_astar_parity(astar)
+    del astar
+    with timed(since=fleet_run.started):
+        tpu_fleet = phase_tpu_fleet_run(fleet_run)
+    with timed(since=tenants_live.started):
+        phase_tenants_live(tenants_live)
+    replay = start_replay_live()
+    with timed():
+        phase_parity_table(dev)
+    with timed():
+        phase_quality_gap(dev, ref_makespan, medium)
+    with timed():
+        phase_field_fuzz(dev)
+    with timed():
+        phase_sector_fuzz(dev)
+    with timed(since=replay["cuda"].started):
+        phase_replay_live(replay)
+    with timed(since=chaos_proc.started):
+        chaos = phase_chaos_live(chaos_proc)
+    with timed(since=bench.started):
+        mesh_bench = phase_mesh_bench(bench)
     # alone: it measures latency
-    crossover = phase_crossover_sweep()
+    with timed():
+        crossover = phase_crossover_sweep()
     # the measurement twins of the solver side and the dynamic world
     torch.cuda.empty_cache()
-    phase_parity_table(dev)
-    phase_congestion(dev, congested)
-    phase_decent_premium(medium)
-    phase_roofline(dev, flag)
-    phase_quality_gap(dev, ref_makespan, medium)
-    phase_field_fuzz(dev)
-    phase_sector_fuzz(dev)
-    field_bench = phase_field_bench(dev)
-    phase_sector_bench(dev)
+    with timed():
+        phase_congestion(dev, congested)
+    with timed():
+        phase_decent_premium(dev, medium)
+    with timed():
+        phase_roofline(dev, flag)
+    with timed():
+        field_bench = phase_field_bench(dev)
+    with timed():
+        phase_sector_bench(dev)
     served = {
         "sweep_scan": {
             "1k-512": serve_medium["unset"]["launches_per_tick"]["sweep"],
@@ -3704,6 +3915,7 @@ def main(argv=None) -> int:
         c = counter[k["name"]]
         k["launches_per_twin_phase"] = {
             phase: counts.get(c, 0) for phase, counts in twin_counts.items()}
+    emit_phase_seconds()
     print(json.dumps({"kernels": kernels}), flush=True)
     print_device_line()
     return 0

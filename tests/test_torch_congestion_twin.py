@@ -48,3 +48,26 @@ def test_run_one_matches_jax(mode):
     want.pop("ms_per_step")
     assert got == want
     assert got["completed"]
+
+
+def test_run_one_without_warm_solves_once(monkeypatch):
+    """``warm=False`` (``chip_smoke.py``'s congestion phase, whose process
+    has solved the rung already) times the first solve and reports the
+    same row as the warm run but for the time."""
+    from p2p_distributed_tswap_tpu_torch.solver import mapd as tmapd
+
+    scn = MODES["centralized"](tiny(tsc, Grid))
+    solves = []
+    real = tmapd.run_mapd
+
+    def counting(*args, **kwargs):
+        solves.append(args[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tmapd, "run_mapd", counting)
+    cold = torch_congestion.run_one(scn, 1, "cpu", warm=False)
+    assert len(solves) == 1
+    warm = torch_congestion.run_one(scn, 1, "cpu")
+    assert len(solves) == 3
+    assert cold.pop("ms_per_step") > 0 and warm.pop("ms_per_step") > 0
+    assert cold == warm

@@ -65,3 +65,23 @@ def test_nomask_patch_is_undone_when_the_solve_raises(tiny_medium,
         torch_decent_premium.run_variant("medium", "decent_nomask", "cpu")
     assert seen and seen[0] is not WITHIN_RADIUS[1]  # patched in the solve
     assert tstep._within_radius is WITHIN_RADIUS[1]
+
+
+def test_run_variant_without_warm_solves_once(tiny_medium, monkeypatch):
+    """``warm=False`` times the variant's first solve: one solve, and the
+    row of the warm run but for the time."""
+    solves = []
+    real = tmapd.run_mapd
+
+    def counting(*args, **kwargs):
+        solves.append(args[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tmapd, "run_mapd", counting)
+    cold = torch_decent_premium.run_variant("medium", "stale", "cpu",
+                                            warm=False)
+    assert len(solves) == 1
+    warm = torch_decent_premium.run_variant("medium", "stale", "cpu")
+    assert len(solves) == 3
+    assert cold.pop("ms_per_step") > 0 and warm.pop("ms_per_step") > 0
+    assert cold == warm

@@ -84,3 +84,23 @@ def test_round_trips_pair_each_apply_with_its_request_and_tick():
     # a round trip with no daemon tick inside it keeps None
     assert live.round_trips(encodes, applies, [], 0, 600_000) == [
         (30.0, None), (28.0, None)]
+
+
+def test_dispatch_times_of_every_manager_file(tmp_path):
+    """Every ``task.dispatch`` of every manager's event file, in µs; other
+    events, other processes' files and torn lines are skipped.  Each rung
+    row sets the first of them against the window's opening."""
+    lines = [{"ts_ms": 5_000, "event": "task.dispatch"},
+             {"ts_ms": 4_000, "event": "task.queue"},
+             {"event": "task.dispatch"}]
+    (tmp_path / "manager_centralized-1.events.jsonl").write_text(
+        "\n".join(map(json.dumps, lines)) + "\n{torn")
+    (tmp_path / "manager_centralized-2.events.jsonl").write_text(
+        json.dumps({"ts_ms": 3_000, "event": "task.dispatch"}) + "\n")
+    (tmp_path / "simfleet-3.events.jsonl").write_text(
+        json.dumps({"ts_ms": 1_000, "event": "task.dispatch"}) + "\n")
+    times = live._dispatch_times_us(tmp_path)
+    assert sorted(times) == [3_000_000, 5_000_000]
+    assert live._seconds(4_500_000, min(times)) == 1.5
+    assert live._seconds(4_500_000, None) is None
+    assert live._dispatch_times_us(tmp_path / "none") == []
