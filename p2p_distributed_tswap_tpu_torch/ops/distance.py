@@ -37,6 +37,11 @@ DIR_STAY = 4
 PACKED_LANES = 8
 PACKED_STAY = sum(DIR_STAY << (4 * i) for i in range(PACKED_LANES))
 
+# Sweep rounds and batches of :func:`_fixpoint` since the last reset
+# (callers reset them to 0): each round is one host sync.
+fixpoint_rounds = 0
+fixpoint_batches = 0
+
 
 def _sweep(d: torch.Tensor, blocked: torch.Tensor, axis: int,
            reverse: bool) -> torch.Tensor:
@@ -57,10 +62,15 @@ def _fixpoint(d: torch.Tensor, free: torch.Tensor, max_rounds: int,
               sweep=_sweep) -> torch.Tensor:
     """Sweep rounds over the (R, H, W) batch ``d`` until nothing changes (or
     ``max_rounds``), each directional sweep by ``sweep``; ``free`` is one
-    (H, W) mask for every field or an (R, H, W) mask per field."""
+    (H, W) mask for every field or an (R, H, W) mask per field.  Counts
+    the batch in ``fixpoint_batches`` and each round in
+    ``fixpoint_rounds``."""
+    global fixpoint_rounds, fixpoint_batches
+    fixpoint_batches += 1
     blocked = (~free).to(torch.uint8).contiguous()
     changed, i = True, 0
     while changed and i < max_rounds:
+        fixpoint_rounds += 1
         nd = sweep(d, blocked, axis=2, reverse=False)
         nd = sweep(nd, blocked, axis=2, reverse=True)
         nd = sweep(nd, blocked, axis=1, reverse=False)

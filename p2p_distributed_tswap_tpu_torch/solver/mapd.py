@@ -23,6 +23,13 @@ rows of ``dirs`` IN PLACE (no second copy of the largest tensor of the
 solve, 5.2 GB at the flagship rung), and :func:`_record` writes the path
 buffers in place: a state handed to :func:`mapd_step` shares those buffers
 with the state it returns.
+
+Tracing: :func:`mapd_step` records one span a phase, none inside another:
+``mapd.transitions``, ``mapd.assign``, ``mapd.replan``, ``mapd.tswap``
+(with ``step.swap`` and ``step.cascade`` inside, from ``solver/step.py``)
+and ``mapd.record``; :func:`prepare_state` records ``mapd.assign`` and
+``mapd.prime``.  ``field_rows`` counts the field rows the replan and the
+prime compute, clipped lanes included.
 """
 
 from __future__ import annotations
@@ -58,6 +65,10 @@ _I32 = torch.int32
 _IDLE = int(AgentPhase.IDLE)
 _TO_PICKUP = int(AgentPhase.TO_PICKUP)
 _TO_DELIVERY = int(AgentPhase.TO_DELIVERY)
+
+# Field rows computed by :func:`_replan` and :func:`prime_fields` since the
+# last reset (callers reset it to 0): the chunk width for every chunk.
+field_rows = 0
 
 
 @dataclasses.dataclass
@@ -208,11 +219,13 @@ def _replan(cfg: SolverConfig, s: MapdState,
             free: torch.Tensor) -> MapdState:
     """Recompute the packed rows of agents whose goal changed, in chunks of
     ``replan_chunk_small`` lowest flagged ids until the set drains."""
+    global field_rows
     n = cfg.num_agents
     r = min(cfg.replan_chunk_small, n)
     idx = torch.arange(n, dtype=_I32, device=s.pos.device)
     need = s.need_replan
     while hostsync.flag(torch.any(need)):
+        field_rows += r
         priority = torch.where(need, idx, n)
         sel = torch.topk(priority, r, largest=False).values  # r lowest ids
         valid = sel < n
@@ -237,9 +250,11 @@ def _prime_chunks(cfg: SolverConfig, s: MapdState, free: torch.Tensor,
     """The t=0 burst's loop of ``replan_chunk``-wide chunks, each chunk in
     a ``mapd.prime_chunk`` span when ``traced``.  The tail chunk clips to
     agent n-1 and recomputes its row."""
+    global field_rows
     n, r = cfg.num_agents, min(cfg.replan_chunk, cfg.num_agents)
     lane = torch.arange(r, dtype=_I32, device=s.pos.device)
     for ci, o in enumerate(range(0, n, r)):
+        field_rows += r
         with (trace.span("mapd.prime_chunk", chunk=ci) if traced
               else contextlib.nullcontext()):
             sel = (o + lane).clamp(0, n - 1)
@@ -340,24 +355,38 @@ def mapd_step(cfg: SolverConfig, s: MapdState, tasks: torch.Tensor,
     tasks = _as_tensor(tasks, _I32, dev)
     if replan_fn is None:
         free = _as_tensor(free, torch.bool, dev)
-    stale = cfg.stale_mode
-    if stale:
-        s = _commit_pending(cfg, s)
-    s = _transitions(cfg, s, tasks)
-    if hostsync.flag(torch.any((s.phase == _IDLE) & ~torch.all(s.task_used))):
-        s = _assign(cfg, s, tasks)
-    s = (replan_fn or _replan)(cfg, s, free)
-    if not stale:
+    with trace.span("mapd.transitions"):
+        if cfg.stale_mode:
+            s = _commit_pending(cfg, s)
+        s = _transitions(cfg, s, tasks)
+    with trace.span("mapd.assign"):
+        if hostsync.flag(torch.any((s.phase == _IDLE)
+                                   & ~torch.all(s.task_used))):
+            s = _assign(cfg, s, tasks)
+    with trace.span("mapd.replan"):
+        s = (replan_fn or _replan)(cfg, s, free)
+    with trace.span("mapd.tswap"):
+        s = _tswap(cfg, s, nh_factory)
+    with trace.span("mapd.record"):
+        return _record(cfg, s)
+
+
+def _tswap(cfg: SolverConfig, s: MapdState, nh_factory) -> MapdState:
+    """The TSWAP step of :func:`mapd_step`: fresh-atomic, or in stale mode
+    the view's refresh, :func:`step_stale` and the commit of a zero
+    delay."""
+    if not cfg.stale_mode:
         if nh_factory is None:
             pos, goal, slot = step_parallel(cfg, s.pos, s.goal, s.slot,
                                             s.dirs)
         else:
             pos, goal, slot = step_with_next_hops(
                 cfg, s.pos, s.goal, s.slot, nh_factory(cfg, s.dirs))
-        return _record(cfg, s.replace(pos=pos, goal=goal, slot=slot))
+        return s.replace(pos=pos, goal=goal, slot=slot)
     s = _broadcast_view(cfg, s)
     if cfg.view_ttl_steps is None:
-        visible = torch.ones(cfg.num_agents, dtype=torch.bool, device=dev)
+        visible = torch.ones(cfg.num_agents, dtype=torch.bool,
+                             device=s.pos.device)
     else:
         visible = (s.t - s.vstamp) <= cfg.view_ttl_steps
     dirs = s.dirs
@@ -370,7 +399,7 @@ def mapd_step(cfg: SolverConfig, s: MapdState, tasks: torch.Tensor,
     s = s.replace(pos=pos, pend_from=pend_from, pend_push=pend_push)
     if cfg.swap_commit_delay == 0:
         s = _commit_pending(cfg, s)
-    return _record(cfg, s)
+    return s
 
 
 def _finished(cfg: SolverConfig, s: MapdState) -> torch.Tensor:
@@ -397,11 +426,10 @@ def validate_tasks(grid: Grid, tasks) -> None:
         raise ValueError("task pickup/delivery cell on an obstacle")
 
 
-def prepare_state_unprimed(cfg: SolverConfig, starts, tasks, device=None
-                           ) -> Tuple[MapdState, torch.Tensor]:
-    """:func:`prepare_state` minus the field burst: init + pre-loop
-    transitions + first assignment."""
-    dev = resolve_device(device)
+def _unassigned(cfg: SolverConfig, starts, tasks, dev: torch.device
+                ) -> Tuple[MapdState, torch.Tensor]:
+    """Init and the pre-loop transitions, the zero-task case substituted by
+    one pre-used dummy task."""
     starts = _as_tensor(starts, _I32, dev)
     tasks = _as_tensor(tasks, _I32, dev)
     if tasks.shape[0] == 0:
@@ -410,9 +438,16 @@ def prepare_state_unprimed(cfg: SolverConfig, starts, tasks, device=None
         s = s.replace(task_used=torch.ones(1, dtype=torch.bool, device=dev))
     else:
         s = init_state(cfg, starts, tasks.shape[0])
-    s = _transitions(cfg, s, tasks)
-    s = _assign(cfg, s, tasks)
-    return s, tasks
+    return _transitions(cfg, s, tasks), tasks
+
+
+def prepare_state_unprimed(cfg: SolverConfig, starts, tasks, device=None
+                           ) -> Tuple[MapdState, torch.Tensor]:
+    """:func:`prepare_state` minus the field burst: init + pre-loop
+    transitions + first assignment.  Records no span, as the JAX package's
+    one device program does not."""
+    s, tasks = _unassigned(cfg, starts, tasks, resolve_device(device))
+    return _assign(cfg, s, tasks), tasks
 
 
 def prepare_state(cfg: SolverConfig, starts, tasks, free, device=None
@@ -423,8 +458,12 @@ def prepare_state(cfg: SolverConfig, starts, tasks, free, device=None
     pre-used dummy task.  (The JAX package documents the one-step-early
     pickup flip of an agent whose start is its pickup; the same holds.)"""
     dev = resolve_device(device)
-    s, tasks = prepare_state_unprimed(cfg, starts, tasks, dev)
-    return prime_fields(cfg, s, _as_tensor(free, torch.bool, dev)), tasks
+    s, tasks = _unassigned(cfg, starts, tasks, dev)
+    with trace.span("mapd.assign"):
+        s = _assign(cfg, s, tasks)
+    with trace.span("mapd.prime"):
+        s = prime_fields(cfg, s, _as_tensor(free, torch.bool, dev))
+    return s, tasks
 
 
 def run_mapd(cfg: SolverConfig, starts, tasks, free,

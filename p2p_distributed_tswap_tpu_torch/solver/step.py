@@ -56,6 +56,11 @@ meet.  Positions, goals and next hops stay plain cells.  The fold is exact:
   cut at the same round as under ``vmap``.
 
 One cascade sync per round serves the whole slab.
+
+Tracing: :func:`step_with_next_hops` and :func:`step_stale` record two
+spans, ``step.swap`` (the occupancy and the goal-swap rounds) and
+``step.cascade`` (the movement phase), and ``cascade_rounds`` counts the
+movement rounds (a host sync each).
 """
 
 from __future__ import annotations
@@ -66,12 +71,17 @@ import torch
 
 from p2p_distributed_tswap_tpu_torch import hostsync
 from p2p_distributed_tswap_tpu_torch.core.config import SolverConfig
+from p2p_distributed_tswap_tpu_torch.obs import trace
 from p2p_distributed_tswap_tpu_torch.ops.distance import (
     apply_direction,
     gather_packed,
 )
 
 _I32 = torch.int32
+
+# Movement rounds of :func:`_cascade` since the last reset (callers reset it
+# to 0): each round is one host sync.
+cascade_rounds = 0
 
 
 def _arange(n: int, device) -> torch.Tensor:
@@ -260,7 +270,9 @@ def _cascade(cfg: SolverConfig, u, b, decided, newpos, active,
     ``u`` is open -- no decided active agent ends there, and its original
     occupant ``b`` (-1 none) has decided to move away -- claims it, the
     lowest id winning.  Rounds repeat until nobody moves (one host sync
-    each), in every plane of ``cells`` at once."""
+    each, counted in ``cascade_rounds``), in every plane of ``cells`` at
+    once."""
+    global cascade_rounds
     n = cfg.num_agents
     idx = _arange(n, u.device)
     bc = b.clamp(0, n - 1)
@@ -282,6 +294,7 @@ def _cascade(cfg: SolverConfig, u, b, decided, newpos, active,
         newpos = torch.where(mover, u, newpos)
         changed = hostsync.flag(torch.any(mover))
         r += 1
+        cascade_rounds += 1
     return newpos
 
 
@@ -348,13 +361,17 @@ def step_with_next_hops(cfg: SolverConfig, pos, goal, slot, nh_fn,
     cells = _Cells(cfg, tenants, pos.device)
     if active is None:
         active = all_lanes(cfg, pos.device)
-    occ = _occupancy(cfg, pos, active, cells)
-    pushed = torch.zeros(cfg.num_agents, dtype=torch.bool, device=pos.device)
-    goal, slot = goal.clone(), slot.clone()
-    for _ in range(cfg.swap_rounds):
-        goal, slot, pushed = _swap_phase_round(cfg, pos, goal, slot, pushed,
-                                               nh_fn, occ, active, cells)
-    pos = _movement_phase(cfg, pos, goal, slot, nh_fn, occ, active, cells)
+    with trace.span("step.swap"):
+        occ = _occupancy(cfg, pos, active, cells)
+        pushed = torch.zeros(cfg.num_agents, dtype=torch.bool,
+                             device=pos.device)
+        goal, slot = goal.clone(), slot.clone()
+        for _ in range(cfg.swap_rounds):
+            goal, slot, pushed = _swap_phase_round(
+                cfg, pos, goal, slot, pushed, nh_fn, occ, active, cells)
+    with trace.span("step.cascade"):
+        pos = _movement_phase(cfg, pos, goal, slot, nh_fn, occ, active,
+                              cells)
     return pos, goal, slot
 
 
@@ -401,71 +418,75 @@ def step_stale(cfg: SolverConfig, pos, goal, slot, nh_fn, vpos, vgoal,
     idx = _arange(n, dev)
     if active is None:
         active = all_lanes(cfg, dev)
-    cells = _Cells(cfg, 1, dev)
-    occ = _occupancy(cfg, pos, active, cells)   # physical truth
-    vocc = _view_occupancy(cfg, vpos, visible & active)
+    with trace.span("step.swap"):
+        cells = _Cells(cfg, 1, dev)
+        occ = _occupancy(cfg, pos, active, cells)   # physical truth
+        vocc = _view_occupancy(cfg, vpos, visible & active)
 
-    # own desired next hop: fresh self-knowledge (pos, goal, own field row)
-    u = _hops(cfg, nh_fn, slot, pos, goal, active)
-    has_move = active & (u != pos)
-    bv = torch.where(has_move, vocc[u], -1)
-    bv = torch.where(bv == idx, -1, bv)         # own stale ghost != blocker
-    bvc = bv.clamp(0, n - 1)
-    # an out-of-radius occupant was evicted from the cache: believed free
-    bv = torch.where((bv >= 0) & _within_radius_pts(cfg, pos, vpos[bvc]),
-                     bv, -1)
-    bvc = bv.clamp(0, n - 1)
-    blocked = bv >= 0
+        # own desired next hop: fresh self-knowledge (pos, goal, own field row)
+        u = _hops(cfg, nh_fn, slot, pos, goal, active)
+        has_move = active & (u != pos)
+        bv = torch.where(has_move, vocc[u], -1)
+        bv = torch.where(bv == idx, -1, bv)     # own stale ghost != blocker
+        bvc = bv.clamp(0, n - 1)
+        # an out-of-radius occupant was evicted from the cache: believed free
+        bv = torch.where((bv >= 0) & _within_radius_pts(cfg, pos, vpos[bvc]),
+                         bv, -1)
+        bvc = bv.clamp(0, n - 1)
+        blocked = bv >= 0
 
-    # ---- Rule 3 on the view: blocker parked (in view) on its view goal ----
-    parked_v = vpos == vgoal
-    cand3 = blocked & parked_v[bvc]
-    same_goal = vgoal[bvc] == goal              # push case (shared delivery)
-    # each agent joins at most one pair: grant each blocker its lowest
-    # claimant, then resolve claimant-vs-blocker role conflicts by lowest id
-    grant = _scatter_min(n + 1, n, torch.where(cand3, bvc, n), idx)
-    win = cand3 & (grant[bvc] == idx)
-    tgt = grant[:n]                             # claimant granted agent j
-    keep = win & ((tgt == n) | (idx < tgt))
-    keep = keep & ~(win[bvc] & (bvc < idx))
-    push = keep & same_goal
-    sw = keep & ~same_goal
+        # ---- Rule 3 on the view: blocker parked (in view) on its view
+        # goal ----
+        parked_v = vpos == vgoal
+        cand3 = blocked & parked_v[bvc]
+        same_goal = vgoal[bvc] == goal      # push case (shared delivery)
+        # each agent joins at most one pair: grant each blocker its lowest
+        # claimant, then resolve claimant-vs-blocker role conflicts by
+        # lowest id
+        grant = _scatter_min(n + 1, n, torch.where(cand3, bvc, n), idx)
+        win = cand3 & (grant[bvc] == idx)
+        tgt = grant[:n]                             # claimant granted agent j
+        keep = win & ((tgt == n) | (idx < tgt))
+        keep = keep & ~(win[bvc] & (bvc < idx))
+        push = keep & same_goal
+        sw = keep & ~same_goal
 
-    pend_from = _arange(n + 1, dev)
-    pend_from[torch.where(sw, idx, n)] = torch.where(sw, bvc, n)
-    pend_from[torch.where(sw, bvc, n)] = torch.where(sw, idx, n)
-    pend_push = torch.full((n + 1,), -1, dtype=_I32, device=dev)
-    pend_push[torch.where(push, bvc, n)] = torch.where(push, pos, -1)
-    pend_push = pend_push[:n]
+        pend_from = _arange(n + 1, dev)
+        pend_from[torch.where(sw, idx, n)] = torch.where(sw, bvc, n)
+        pend_from[torch.where(sw, bvc, n)] = torch.where(sw, idx, n)
+        pend_push = torch.full((n + 1,), -1, dtype=_I32, device=dev)
+        pend_push[torch.where(push, bvc, n)] = torch.where(push, pos, -1)
+        pend_push = pend_push[:n]
 
-    # ---- Rule 4 on the view graph: f(j) = the agent j believes occupies
-    # j's desired next cell; pair participants and goal-mutual pairs are
-    # left out of it ----
-    in_pair = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-    in_pair[torch.where(keep, idx, n)] = True
-    in_pair[torch.where(keep, bvc, n)] = True
-    in_pair = in_pair[:n]
-    # goal-mutual pairs (each holds the other's cell as goal: what a
-    # committed push leaves) swap physically in the cascade and must not
-    # also read as a Rule-4 2-cycle
-    occ_u = torch.where(has_move, occ[u], -1)
-    ouc = occ_u.clamp(0, n - 1)
-    mutual = (has_move & (occ_u >= 0) & (occ_u != idx)
-              & (goal == u) & (goal[ouc] == pos) & (u[ouc] == pos))
-    fmask = blocked & ~in_pair & ~in_pair[bvc] & ~mutual & ~mutual[bvc]
-    f = torch.where(fmask, bv, n)
-    # the initiator sees each member where the view places it
-    on_cycle = _initiated_cycles(
-        cfg, f, lambda y: _within_radius_pts(
-            cfg, pos, vpos[y.clamp(0, n - 1)]) & (y < n))
-    # members hand goals backward along the ring, pending like swaps
-    pend_from[torch.where(on_cycle, f, n)] = torch.where(on_cycle, idx, n)
-    pend_from = pend_from[:n]
+        # ---- Rule 4 on the view graph: f(j) = the agent j believes occupies
+        # j's desired next cell; pair participants and goal-mutual pairs are
+        # left out of it ----
+        in_pair = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        in_pair[torch.where(keep, idx, n)] = True
+        in_pair[torch.where(keep, bvc, n)] = True
+        in_pair = in_pair[:n]
+        # goal-mutual pairs (each holds the other's cell as goal: what a
+        # committed push leaves) swap physically in the cascade and must not
+        # also read as a Rule-4 2-cycle
+        occ_u = torch.where(has_move, occ[u], -1)
+        ouc = occ_u.clamp(0, n - 1)
+        mutual = (has_move & (occ_u >= 0) & (occ_u != idx)
+                  & (goal == u) & (goal[ouc] == pos) & (u[ouc] == pos))
+        fmask = blocked & ~in_pair & ~in_pair[bvc] & ~mutual & ~mutual[bvc]
+        f = torch.where(fmask, bv, n)
+        # the initiator sees each member where the view places it
+        on_cycle = _initiated_cycles(
+            cfg, f, lambda y: _within_radius_pts(
+                cfg, pos, vpos[y.clamp(0, n - 1)]) & (y < n))
+        # members hand goals backward along the ring, pending like swaps
+        pend_from[torch.where(on_cycle, f, n)] = torch.where(on_cycle, idx, n)
+        pend_from = pend_from[:n]
 
     # ---- movement: only believed-free moves are attempted ----
     movers = has_move & ~blocked
-    newpos = _movement_cascade(cfg, pos, u, movers, occ, active, mutual,
-                               cells)
+    with trace.span("step.cascade"):
+        newpos = _movement_cascade(cfg, pos, u, movers, occ, active, mutual,
+                                   cells)
     return newpos, pend_from, pend_push
 
 

@@ -9,6 +9,9 @@ widths (a clipped tail chunk among them), the packed rows and
 ``need_replan`` are equal to the JAX function's and to the port's
 ``prime_fields``; the spans ``mapd.host_prime_fields``, ``mapd.prime_chunk``
 and ``mapd.solve_offline`` carry the JAX module's names and attributes.
+The port's solve records more spans than the JAX package's, its phase
+spans (``solver/mapd.py``, ``solver/step.py``), every one nested in
+``mapd.solve_offline``.
 """
 
 import functools
@@ -31,6 +34,10 @@ from p2p_distributed_tswap_tpu_torch.obs import trace as ttrace
 from p2p_distributed_tswap_tpu_torch.solver import mapd as tmapd
 
 N = 10
+# The port's phase spans, which the JAX package's one device program has
+# no host side to record.
+PHASES = {"mapd.transitions", "mapd.assign", "mapd.replan", "mapd.tswap",
+          "step.swap", "step.cascade", "mapd.record", "mapd.prime"}
 
 
 def _problem(replan_chunk):
@@ -109,6 +116,16 @@ def test_solve_offline_span_matches_jax(tracers):
     _, _, mk = tmapd.solve_offline(grid, starts, tasks, device="cpu")
     assert mk == jmk
     jt, tt = tracers
-    want = [s for s in _spans(jt) if s[0] == "mapd.solve_offline"]
-    assert want == [("mapd.solve_offline", {"agents": 4, "tasks": 5})]
-    assert _spans(tt) == want
+    want = _spans(jt)
+    assert [s for s in want if s[0] == "mapd.solve_offline"] == [
+        ("mapd.solve_offline", {"agents": 4, "tasks": 5})]
+    got = _spans(tt)
+    jax_names = {name for name, _ in want}
+    assert [s for s in got if s[0] in jax_names] == want
+    # every other span is a phase span, nested in mapd.solve_offline (the
+    # step's two through mapd.tswap)
+    phases = [(name, args) for name, args in got if name not in jax_names]
+    assert {name for name, _ in phases} == PHASES
+    for name, args in phases:
+        assert args == {"parent": "mapd.tswap" if name.startswith("step.")
+                        else "mapd.solve_offline"}
