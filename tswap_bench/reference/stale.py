@@ -39,7 +39,9 @@ One step, from the state before it (cells flat ``y * W + x``):
    claimant; a winning claim forms a pair unless its claimant or its
    blocker is also in a winning claim of a lower claimant.  A pair
    exchanges goals (pending), or, where the blocker's goal is the
-   claimant's own goal, the blocker is pushed toward the claimant's cell.
+   claimant's own goal, the blocker is pushed toward the claimant's cell;
+   under the rule ``park`` a claimant with no task takes its own cell as
+   its goal (pending) instead, and the blocker keeps its goal.
 7. Rule 4 (WaitForRotation, agent.rs:379-448, 907-921).  Each agent's
    successor is its blocker, unless either of them is in a pair or in a
    goal-mutual pair (two agents next to each other, each wanting and
@@ -76,7 +78,12 @@ Departures from the reference agent, as the program makes them:
   mode has no swap action).
 - The push: where the blocker's goal is the claimant's own (two tasks share
   a delivery cell), the blocker's goal becomes the claimant's cell, where
-  the reference's Rule 3 would exchange equal goals for ever.
+  the reference's Rule 3 would exchange equal goals for ever.  Idle agents
+  that share a goal can push it from one to another round a crowded
+  crossing for ever, and hold an agent with a task behind them; under the
+  rule ``park`` (``Rules.idle_claimant``) an idle claimant parks on its
+  own cell instead, which the reference agent, whose Rule 3 knows only
+  exchanges, never needs.
 """
 
 from __future__ import annotations
@@ -101,6 +108,11 @@ class Rules:
     delay: int              # commit delay, 0 or 1
     cycle_cap: int
     max_move_rounds: int
+    idle_claimant: str = "push"     # Rule 3's push case for an idle claimant
+
+    def __post_init__(self):
+        if self.idle_claimant not in ("push", "park"):
+            raise ValueError(f"idle claimant rule {self.idle_claimant!r}")
 
 
 class NextCells:
@@ -202,10 +214,12 @@ def step(state: dict, tasks: torch.Tensor, rules: Rules,
     for b, c in granted.items():
         if lowest[b] == c and lowest[c] == c:
             in_pair |= {b, c}
-            if vgoal[b] == goal[c]:
-                pend_push[b] = pos[c]
-            else:
+            if vgoal[b] != goal[c]:
                 pend_from[c], pend_from[b] = b, c
+            elif rules.idle_claimant == "park" and phase[c] == IDLE:
+                pend_push[c] = pos[c]
+            else:
+                pend_push[b] = pos[c]
 
     # 7. Rule 4
     occupant = {pos[j]: j for j in range(n)}
@@ -300,6 +314,16 @@ def undelivered(state: torch.Tensor, owner: torch.Tensor, makespan: int,
     missing = int((~(in_order & carried & (owner >= 0))).sum())
     open_end = bool((state[-1] != 0).any()) or makespan > horizon
     return missing + int(open_end)
+
+
+def out_of_order(state: torch.Tensor, owner: torch.Tensor) -> int:
+    """Tasks of a solve cut before its end that no agent took, or whose
+    agent's recorded states so far break :func:`undelivered`'s order:
+    PICKING, then CARRYING or DELIVERED, then IDLE."""
+    cols = state[:, owner.clamp(min=0)].long()
+    rank = _RANK.to(cols.device)[cols]
+    in_order = (rank[1:] >= rank[:-1]).all(0)
+    return int((~(in_order & (owner >= 0))).sum())
 
 
 # What one step leaves, by the program's and the reference's names.

@@ -4,9 +4,21 @@ stale step's place and three faults planted in the stale step each give
 ``stale_step_mismatch`` above 0; the four readers of stale mode's spans and
 counter on made-up windows; the port's live tracer records one
 ``mapd.view``, ``mapd.commit`` and ``step.cycles`` span and one
-``stale_steps`` a stale step, and none of them in a centralized step; and
-the stale reference loads nothing of the program."""
+``stale_steps`` a stale step, and none of them in a centralized step; the
+stale reference loads nothing of the program; and the idle-claimant rule:
+on a drill where the push rule livelocks, the program and the reference
+under ``push`` take the same steps into a state that recurs for ever, the
+reference under ``park`` finishes, vertex-disjoint at every step, and the
+program's ``push`` laid under a ``park`` reference is caught; a program
+whose configuration has no ``idle_claimant`` is refused a ``park``
+configuration as "not served".  A mix that cuts each solve after a fixed
+number of steps (``steps_per_solve``, the ``stale-steps`` traffic) is
+judged by ``task_order_faults`` in place of ``undelivered``: a sound cut
+run is correct, and a step that returns its state unchanged, one that
+leaves half the agents out, one answer altered where it is produced, the
+fresh step and the planted faults are each caught."""
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -19,7 +31,10 @@ import torch
 
 from conftest import ROOT, run_cpu
 from tswap_bench import harness
+from tswap_bench.reference import stale as ref_stale
 from tswap_bench.stale_control import CONTROL, FAULTS
+from tswap_bench.traffic import inputs, stale_solves
+from p2p_distributed_tswap_tpu_torch import hostsync
 from p2p_distributed_tswap_tpu_torch.core.config import SolverConfig
 from p2p_distributed_tswap_tpu_torch.obs import registry, trace
 from p2p_distributed_tswap_tpu_torch.solver import mapd, step
@@ -50,23 +65,31 @@ CHECK = {"steps": 6, "step_span": 80, "agents": 6, "stayed": 6,
 EVERY_STEP = dict(CHECK, steps=400, step_span=80)
 
 
-def make_stale_root(tmp, cfg, check=CHECK):
+def make_stale_root(tmp, cfg, check=CHECK, cut=None):
     """A checkout root in ``tmp`` with one ``<config>.stale`` cell of the
-    ``stale-solves`` traffic."""
+    ``stale-solves`` traffic, or with ``cut`` of a mix that cuts each solve
+    after ``cut`` steps."""
     shutil.copytree(ROOT / "tswap_bench", tmp / "tswap_bench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     m = json.loads((ROOT / "BENCHMARK.json").read_text())
     name = cfg["name"]
     bench = tmp / "tswap_bench"
+    traffic = "stale-solves"
+    if cut is not None:
+        traffic = "stale-cut"
+        mix = json.loads((bench / "traffic" / "stale-steps.json")
+                         .read_text())
+        (bench / "traffic" / f"{traffic}.json").write_text(json.dumps(
+            dict(mix, steps_per_solve=cut)))
     (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
     (bench / "workloads" / f"{name}.stale.json").write_text(json.dumps(
-        {"config": name, "traffic": "stale-solves", "solves_prepared": 2,
+        {"config": name, "traffic": traffic, "solves_prepared": 2,
          "check": check}))
     m["configs"].append({"name": name, "source": "test",
                          "file": f"tswap_bench/configs/{name}.json",
                          "reduced": [], "why": "test"})
     m["workloads"].append({"name": f"{name}.stale", "config": name,
-                           "traffic": "stale-solves", "chips": 1,
+                           "traffic": traffic, "chips": 1,
                            "why": "test"})
     (tmp / "BENCHMARK.json").write_text(json.dumps(m))
     return tmp
@@ -95,6 +118,99 @@ def test_fresh_step_and_faults_are_caught(tmp_path, name):
     cfg, check = ((NARROW, EVERY_STEP) if name == "no_radius_test"
                   else (STALE, CHECK))
     root = make_stale_root(tmp_path, cfg, check)
+    r = run_cpu(root, f"{cfg['name']}.stale", seconds=2.0,
+                patches={target: fn})
+    assert r["correct"] is False
+    assert r["checks"]["stale_step_mismatch"]["value"] > 0
+    assert r["failed"] >= 1
+
+
+# A cut of each solve well before its end on STALE's grid (makespans
+# about 150), and the sample drawn within it.
+CUT, CUT_CHECK = 40, dict(CHECK, step_span=40)
+
+
+def test_sound_cut_run_is_correct(tmp_path):
+    r = run_cpu(make_stale_root(tmp_path, STALE, CUT_CHECK, cut=CUT),
+                "stale-small.stale", seconds=2.0)
+    assert r["correct"] is True
+    assert r["attempted"] >= 1 and r["failed"] == 0
+    assert set(r["checks"]) == {"assign_mismatch", "plan_faults",
+                                "task_order_faults", "field_mismatch",
+                                "stale_step_mismatch"}
+    assert all(c["value"] == 0 for c in r["checks"].values())
+
+
+def test_cut_solves_end_at_the_cut(tmp_path):
+    root = make_stale_root(tmp_path, STALE, CUT_CHECK, cut=CUT)
+    kind = harness.load_module(root / "tswap_bench" / "traffic"
+                               / "stale_solves.py")
+    bench = root / "tswap_bench"
+    cfg = json.loads((bench / "configs" / "stale-small.json").read_text())
+    mix = json.loads((bench / "traffic" / "stale-cut.json").read_text())
+    cell = json.loads((bench / "workloads" / "stale-small.stale.json")
+                      .read_text())
+    torch.set_num_threads(1)
+    ctx = kind.setup(cfg, mix, cell, 5, torch.device("cpu"))
+    out = kind.window(ctx, 1.0)
+    kind.finish(ctx, out)
+    assert [int(rec.t) for rec in out["solves"]] == [CUT] * len(
+        out["solves"])
+
+
+def out_of_order_counts():
+    # rows: steps; columns: agents; 1 PICKING, 2 CARRYING, 3 DELIVERED,
+    # 0 IDLE
+    state = torch.tensor([[1, 1, 1, 2],
+                          [2, 1, 3, 0],
+                          [3, 2, 0, 1],
+                          [0, 2, 0, 1]])
+    return (ref_stale.out_of_order(state, torch.tensor([0, 1, 2, 3])),
+            ref_stale.out_of_order(state, torch.tensor([0, 1, -1])))
+
+
+def test_out_of_order_counts_only_a_broken_order():
+    # agent 3 goes from IDLE back to PICKING; task 2 of the second call
+    # has no owner
+    assert out_of_order_counts() == (1, 1)
+
+
+def _unchanged(cfg, s, tasks, free, *args, **kw):
+    """A step that returns its state unchanged."""
+    return s
+
+
+def _half_left_out(cfg, s, nh_factory):
+    """The TSWAP step applied to the first half of the agents only."""
+    new = TSWAP(cfg, s, nh_factory)
+    half = torch.arange(cfg.num_agents) < cfg.num_agents // 2
+    return new.replace(pos=torch.where(half, new.pos, s.pos),
+                       goal=torch.where(half, new.goal, s.goal))
+
+
+def _one_goal_altered(cfg, s, nh_factory):
+    """Agent 0's goal replaced by its own cell where the step makes it."""
+    new = TSWAP(cfg, s, nh_factory)
+    goal = new.goal.clone()
+    goal[0] = new.pos[0]
+    return new.replace(goal=goal)
+
+
+TSWAP = mapd._tswap
+MAPD = "p2p_distributed_tswap_tpu_torch.solver.mapd"
+BROKEN = {"unchanged": (f"{MAPD}:mapd_step", _unchanged),
+          "half_left_out": (f"{MAPD}:_tswap", _half_left_out),
+          "one_goal_altered": (f"{MAPD}:_tswap", _one_goal_altered)}
+
+
+@pytest.mark.parametrize("name", [*sorted(BROKEN), "fresh_step",
+                                  *sorted(FAULTS)])
+def test_faults_are_caught_in_cut_solves(tmp_path, name):
+    target, fn = (BROKEN[name] if name in BROKEN else CONTROL
+                  if name == "fresh_step" else FAULTS[name])
+    cfg, check = ((NARROW, dict(EVERY_STEP, step_span=CUT))
+                  if name == "no_radius_test" else (STALE, CUT_CHECK))
+    root = make_stale_root(tmp_path, cfg, check, cut=CUT)
     r = run_cpu(root, f"{cfg['name']}.stale", seconds=2.0,
                 patches={target: fn})
     assert r["correct"] is False
@@ -220,3 +336,168 @@ def test_stale_reference_loads_nothing_of_the_program():
     tops = set(eval(p.stdout))
     assert not any(t.startswith("p2p_distributed") for t in tops)
     assert not tops & {"jax", "jaxlib", "flax"}
+
+
+# The idle-push drill: 300 agents on STALE's 40 x 60 warehouse, whose 300
+# tasks deliver to 40 shared cells (a few packing stations; seed 21).
+# Under the push rule three idle agents that share the goal (15, 10) beside
+# an aisle crossing push it among themselves, and ten agents with tasks
+# wait behind them for good; under the park rule the solve ends at step
+# 158.
+DRILL_AGENTS, DRILL_SEED, DRILL_STATIONS = 300, 21, 40
+
+
+def _drill():
+    free_np = inputs.build_grid(STALE["grid"])
+    n = DRILL_AGENTS
+    starts, tasks = inputs.solve_inputs(free_np, n, n, DRILL_SEED * 1000)
+    rng = np.random.default_rng(DRILL_SEED)
+    stations = rng.choice(tasks[:, 1], DRILL_STATIONS, replace=False)
+    tasks[:, 1] = rng.choice(stations, n)
+    plan = STALE["planner"]
+    cfg = SolverConfig(height=40, width=60, num_agents=n,
+                       max_timesteps=plan["max_timesteps"],
+                       replan_chunk=plan["replan_chunk"],
+                       replan_chunk_small=plan["replan_chunk_small"],
+                       visibility_radius=plan["visibility_radius"],
+                       view_refresh_steps=plan["view_refresh_steps"],
+                       swap_commit_delay=plan["swap_commit_delay"])
+    assert cfg.stale_mode
+    free = torch.from_numpy(free_np)
+    s, tasks = mapd.prepare_state(cfg, torch.from_numpy(starts),
+                                  torch.from_numpy(tasks), free,
+                                  device="cpu")
+    return cfg, free, s, tasks
+
+
+def _rules(cfg, rule):
+    return dataclasses.replace(stale_solves.rules(cfg), idle_claimant=rule)
+
+
+def _recurring_key(state: dict, refresh: int) -> tuple:
+    """All that the reference's step reads of ``state`` under no TTL: a
+    state whose key recurs repeats for ever."""
+    return tuple(tuple(state[k].tolist()) for k in (
+        "pos", "goal", "phase", "task", "vpos", "vgoal", "pend_from",
+        "pend_push")) + (int(state["t"]) % refresh,)
+
+
+def test_push_drill_livelocks_in_the_program_and_the_reference():
+    torch.set_num_threads(1)
+    cfg, free, s, tasks = _drill()
+    hops = ref_stale.NextCells(free, cfg.width, 64)
+    rules = _rules(cfg, "push")
+    seen, differ, recurred = set(), 0, False
+    for _ in range(400):
+        before = stale_solves.state_before(s)
+        key = _recurring_key(before, cfg.view_refresh_steps)
+        if key in seen:
+            recurred = True
+            break
+        seen.add(key)
+        want = ref_stale.step(before, tasks, rules, hops)
+        s = mapd.mapd_step(cfg, s, tasks, free)
+        differ += ref_stale.mismatches(want, vars(s))
+    assert differ == 0
+    assert recurred
+    busy = before["phase"] != ref_stale.IDLE
+    assert 0 < int(busy.sum()) <= 12        # agents with tasks held for ever
+    assert not hostsync.flag(mapd._finished(cfg, s))
+
+
+def _reference_solve(cfg, free, s, tasks, rule, horizon):
+    """Step the reference alone from the program's first state ``s`` under
+    ``rule``.  Returns (steps taken, finished, every step vertex-disjoint
+    unit moves on free cells)."""
+    hops = ref_stale.NextCells(free, cfg.width, 64)
+    rules = _rules(cfg, rule)
+    state = stale_solves.state_before(s)
+    open_cells = set(torch.nonzero(free.reshape(-1)).flatten().tolist())
+    w, sound = cfg.width, True
+    for k in range(horizon):
+        if bool(state["used"].all()) and not bool(
+                (state["phase"] != ref_stale.IDLE).any()):
+            return k, True, sound
+        nxt = ref_stale.step(state, tasks, rules, hops)
+        old, new = state["pos"].tolist(), nxt["pos"]
+        sound &= (len(set(new)) == len(new) and set(new) <= open_cells
+                  and all(abs(a % w - b % w) + abs(a // w - b // w) <= 1
+                          for a, b in zip(old, new)))
+        task = [-1 if ph == ref_stale.IDLE else tk
+                for ph, tk in zip(nxt["phase"], state["task"].tolist())]
+        state = {**{name: torch.tensor(v) for name, v in nxt.items()},
+                 "task": torch.tensor(task), "used": state["used"],
+                 "t": int(state["t"]) + 1}
+    return horizon, False, sound
+
+
+def test_park_reference_finishes_the_drill():
+    torch.set_num_threads(1)
+    cfg, free, s, tasks = _drill()
+    steps, finished, sound = _reference_solve(cfg, free, s, tasks, "park",
+                                              400)
+    assert finished and steps == 158
+    assert sound
+
+
+def test_push_program_is_caught_by_a_park_reference():
+    torch.set_num_threads(1)
+    cfg, free, s, tasks = _drill()
+    hops = ref_stale.NextCells(free, cfg.width, 64)
+    rules = _rules(cfg, "park")
+    differ = 0
+    for _ in range(40):
+        want = ref_stale.step(stale_solves.state_before(s), tasks, rules,
+                              hops)
+        s = mapd.mapd_step(cfg, s, tasks, free)
+        differ += ref_stale.mismatches(want, vars(s))
+    assert differ > 0
+
+
+PARK = dict(STALE, name="stale-park",
+            planner=dict(STALE["planner"], idle_claimant="park"))
+PARK_FILE = (ROOT / "tswap_bench" / "configs"
+             / "congested-3k-256-decent-stale-park.json")
+
+
+def _without_rule():
+    """``SolverConfig``'s fields but ``idle_claimant``, as a program that
+    has no such setting."""
+    fields = [(f.name, f.type, dataclasses.field(default=f.default))
+              for f in dataclasses.fields(SolverConfig)
+              if f.name != "idle_claimant"]
+    keep = ("__post_init__", "num_cells", "stale_mode")
+    return dataclasses.make_dataclass(
+        "SolverConfig", fields, frozen=True,
+        namespace={k: vars(SolverConfig)[k] for k in keep})
+
+
+def test_park_configuration_is_refused_without_the_rule(tmp_path,
+                                                        monkeypatch):
+    monkeypatch.setattr(stale_solves, "SolverConfig", _without_rule())
+    with pytest.raises(ValueError, match="not served"):
+        stale_solves._solver_config(json.loads(PARK_FILE.read_text()))
+    cfg = stale_solves._solver_config(STALE)
+    assert cfg.stale_mode and not hasattr(cfg, "idle_claimant")
+    assert stale_solves.rules(cfg).idle_claimant == "push"
+    if "idle_claimant" not in {f.name for f in
+                               dataclasses.fields(SolverConfig)}:
+        # the program as it stands: a run of the park cell is refused
+        monkeypatch.undo()
+        with pytest.raises(ValueError, match="not served"):
+            run_cpu(make_stale_root(tmp_path, PARK), "stale-park.stale")
+
+
+def test_rule_is_passed_on_where_the_program_has_it(monkeypatch):
+    @dataclasses.dataclass(frozen=True)
+    class WithRule(SolverConfig):
+        idle_claimant: str = "push"
+
+    monkeypatch.setattr(stale_solves, "SolverConfig", WithRule)
+    cfg = stale_solves._solver_config(json.loads(PARK_FILE.read_text()))
+    assert cfg.idle_claimant == "park"
+    assert stale_solves.rules(cfg).idle_claimant == "park"
+    cfg = stale_solves._solver_config(STALE)
+    assert stale_solves.rules(cfg).idle_claimant == "push"
+    with pytest.raises(ValueError, match="idle claimant"):
+        _rules(cfg, "yield")

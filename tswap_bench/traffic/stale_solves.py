@@ -23,10 +23,18 @@ before the step is kept on the device with no sync, and after the window
 ``reference/stale.py`` works the whole step out again for every agent;
 every agent whose position, goal, pending source, push target, phase or
 view entry (broadcast cell, goal and stamp) differs counts.
+
+A mix may set ``steps_per_solve``: each solve then ends after that many
+steps, or at its own finish if that comes first, and the solve cut at the
+window's close runs on only to that step.  A solve so cut has no end to
+judge, so ``task_order_faults`` (``reference/stale.py`` ``out_of_order``:
+each owner's recorded states in the stale rule's order, so far) takes the
+place of ``undelivered``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import sys
 from pathlib import Path
@@ -58,9 +66,12 @@ _MAPD = "p2p_distributed_tswap_tpu_torch.solver.mapd"
 ATTRIBUTION = dict(_base.ATTRIBUTION, step=f"{_MAPD}:step_stale",
                    commit=f"{_MAPD}:_commit_pending",
                    view=f"{_MAPD}:_broadcast_view")
-# Exact counts, each with the limit 0.
+# Exact counts, each with the limit 0; a mix that cuts its solves counts
+# "task_order_faults" in place of "undelivered".
 LIMITS = {"assign_mismatch": 0, "plan_faults": 0, "undelivered": 0,
           "field_mismatch": 0, "stale_step_mismatch": 0}
+CUT_LIMITS = {("task_order_faults" if k == "undelivered" else k): v
+              for k, v in LIMITS.items()}
 # The state a stale step reads, by the reference's names.
 _BEFORE = {"pos": "pos", "goal": "goal", "phase": "phase",
            "task": "agent_task", "used": "task_used", "vpos": "vpos",
@@ -74,6 +85,14 @@ def _solver_config(config: dict) -> SolverConfig:
         raise ValueError(f"planner mode {plan['mode']!r} is not served")
     if plan["field_path"] != "default":
         raise ValueError(f"field path {plan['field_path']!r} is not served")
+    # Rule 3's push case for an idle claimant; a program whose SolverConfig
+    # has no such setting runs "push" alone.
+    rule = plan.get("idle_claimant", "push")
+    knobs = {}
+    if "idle_claimant" in {f.name for f in dataclasses.fields(SolverConfig)}:
+        knobs["idle_claimant"] = rule
+    elif rule != "push":
+        raise ValueError(f"idle claimant rule {rule!r} is not served")
     g = config["grid"]
     cfg = SolverConfig(height=g["height"], width=g["width"],
                        num_agents=config["num_agents"],
@@ -84,7 +103,8 @@ def _solver_config(config: dict) -> SolverConfig:
                        visibility_radius=plan["visibility_radius"],
                        view_refresh_steps=plan["view_refresh_steps"],
                        view_ttl_steps=plan["view_ttl_steps"],
-                       swap_commit_delay=plan["swap_commit_delay"])
+                       swap_commit_delay=plan["swap_commit_delay"],
+                       **knobs)
     if not cfg.stale_mode:
         raise ValueError("the planner's settings do not engage stale mode")
     return cfg
@@ -116,12 +136,21 @@ def _step(ctx, op) -> None:
     if before is not None:
         op.rec.captures.append(_capture(ctx, inp, op.k, before, s))
     op.s, op.k = s, op.k + 1
-    op.done = hostsync.flag(mapd._finished(ctx.cfg, s))
+    op.done = (hostsync.flag(mapd._finished(ctx.cfg, s))
+               or op.k == ctx.steps_per_solve)
+
+
+def setup(config: dict, mix: dict, cell: dict, seed: int, device):
+    """``whole_solves``'s set-up, and the mix's cut of each solve (``None``
+    where it runs every solve to its end)."""
+    ctx = _base.setup(config, mix, cell, seed, device)
+    ctx.steps_per_solve = mix.get("steps_per_solve")
+    return ctx
 
 
 _base._solver_config = _solver_config
 _base._step = _step
-setup, window, finish = _base.setup, _base.window, _base.finish
+window, finish = _base.window, _base.finish
 
 
 def rules(cfg: SolverConfig) -> ref_stale.Rules:
@@ -131,7 +160,9 @@ def rules(cfg: SolverConfig) -> ref_stale.Rules:
                            ttl=cfg.view_ttl_steps,
                            delay=cfg.swap_commit_delay,
                            cycle_cap=cfg.cycle_cap,
-                           max_move_rounds=cfg.max_move_rounds)
+                           max_move_rounds=cfg.max_move_rounds,
+                           idle_claimant=getattr(cfg, "idle_claimant",
+                                                 "push"))
 
 
 def stale_mismatch(ctx, rec) -> int:
@@ -150,25 +181,29 @@ def check(ctx, out: dict) -> tuple:
     """Judge every solve of the window against the plain reference.
     Returns (checks: [(name, value, limit)], attempted, failed)."""
     w, horizon = ctx.cfg.width, ctx.cfg.max_timesteps
-    totals = dict.fromkeys(LIMITS, 0)
+    cut = ctx.steps_per_solve is not None
+    limits = CUT_LIMITS if cut else LIMITS
+    totals = dict.fromkeys(limits, 0)
     failed = 0
     for rec in out["solves"]:
         inp = rec.inputs
         t = int(rec.t)
         rows = min(t, rec.paths_pos.shape[0])
         ref = ref_assign.first_assignment(inp.starts, inp.tasks, w)
+        owners = ref_assign.owners(ref, ctx.num_tasks)
+        states = rec.paths_state[:rows]
         found = {
             "assign_mismatch": int((rec.assigned.long() != ref).sum()),
             "plan_faults": ref_plans.faults(inp.starts, rec.paths_pos[:rows],
                                             ctx.free, w),
-            "undelivered": ref_stale.undelivered(
-                rec.paths_state[:rows], ref_assign.owners(ref, ctx.num_tasks),
-                t, horizon),
+            **({"task_order_faults": ref_stale.out_of_order(states, owners)}
+               if cut else {"undelivered": ref_stale.undelivered(
+                   states, owners, t, horizon)}),
             "field_mismatch": _base._field_checks(ctx, rec)[0],
             "stale_step_mismatch": stale_mismatch(ctx, rec),
         }
         for name, value in found.items():
             totals[name] += value
-        failed += any(v > LIMITS[k] for k, v in found.items())
-    checks = [(name, totals[name], LIMITS[name]) for name in LIMITS]
+        failed += any(v > limits[k] for k, v in found.items())
+    checks = [(name, totals[name], limits[name]) for name in limits]
     return checks, len(out["solves"]), failed
